@@ -1,0 +1,69 @@
+"""Build the port's CUDA sources with nvcc at first use and load them.
+
+Each source under ``csrc/`` exposes a plain C function and is compiled
+alone into a shared library (``nvcc -shared``), which ``ctypes`` loads: no
+PyTorch headers, so a build takes seconds. The library's file name carries
+a hash of the source and the flags, so an edited source rebuilds; the
+libraries land in ``kernels/build/``, which git ignores. A missing ``nvcc``
+or a failed build raises: there is no fallback on the CUDA path.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# per source file name: seconds nvcc took, and its ptxas report (registers,
+# shared memory, spills); empty when the library was already on disk
+build_seconds: Dict[str, float] = {}
+build_log: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
+                       "CUDA kernels of repro_torch are built at first use")
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """The loaded library built from `source`, building it if needed."""
+    source = Path(source)
+    key = str(source.resolve())
+    if key in _LIBS:
+        return _LIBS[key]
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"{source.stem}-{digest}.so"
+    if not lib_path.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed to build {source}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+        build_seconds[source.name] = time.perf_counter() - t0
+        build_log[source.name] = proc.stderr
+    lib = ctypes.CDLL(str(lib_path))
+    _LIBS[key] = lib
+    return lib

@@ -1,0 +1,102 @@
+"""The port stands alone: no module of repro_torch, and not chip_smoke.py,
+imports jax or the JAX reference package; entry points run on CUDA by
+default, raise without a card, and work on the CPU when asked."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.kernels.gram.kernel" in mods and "repro_torch.api" in mods
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert all(sys.modules[m] is None for m in bad), bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_file_imports_jax_or_repro():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.api import FedDCL
+    from repro_torch.core import collab, federated
+    from repro_torch.device import resolve_device
+    from repro_torch.models import mlp
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: resolve_device(None),
+                 lambda: FedDCL(m_tilde=2),
+                 lambda: collab.DeviceBackend(),
+                 lambda: collab.get_backend("device"),
+                 lambda: mlp.init_mlp_params(gen, 3, (4,), 1),
+                 lambda: federated.run_federated(
+                     None, None, [(np.zeros((4, 3)), np.zeros((4, 1)))],
+                     opt=None, rounds=1, local_epochs=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert collab.DeviceBackend(device="cpu").device.type == "cpu"
+    assert FedDCL(m_tilde=2, device="cpu").device.type == "cpu"
+
+
+def test_cpu_fit_predict_score_end_to_end():
+    """A tiny whole run on the port alone (its own init and schedule)."""
+    from repro_torch.api import FedDCL
+    from repro_torch.data.partition import split_iid
+    from repro_torch.data.tabular import make_dataset, train_test_split
+    ds = make_dataset("human_activity", n=600, seed=0)
+    (Xtr, Ytr), (Xte, Yte) = train_test_split(ds, 240, 200, seed=0)
+    Xs, Ys = split_iid(Xtr, Ytr, d=2, c=[2, 2], n_ij=60, seed=0)
+    model = FedDCL(m_tilde=10, hidden=(16,), task="classification", rounds=2,
+                   local_epochs=1, anchor_r=300, svd_backend="device",
+                   device="cpu")
+    setup, res = model.fit(Xs, Ys)
+    assert len(res.history) == 2 and np.isfinite(res.history[-1]["loss"])
+    pred = model.predict(Xte)
+    assert pred.shape == (200,) and pred.dtype.kind == "i"
+    acc = model.score(Xte, Yte)
+    assert 0.0 <= acc <= 1.0
+    assert model.transform(Xte[:5], 1, 1).shape == (5, 10)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.serve()
