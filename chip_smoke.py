@@ -2,12 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout (nvcc, at
-first use), holds it against its plain PyTorch version at the protocol's
-shapes, runs Algorithm 1 end to end through the port's public API at the
-width of the paper's mnist model (784 -> m̃ = m̂ = 50, MLP 50-500-100-10;
-Experiment II layout d = 5 groups x c = 4 users x 100 samples, 2000 anchor
-rows, 20 rounds x 4 local epochs, batch 32), and checks what comes out.
+Builds the port's CUDA kernels from the sources in this checkout (nvcc, at
+first use, one process per source in parallel) and holds each against its
+plain PyTorch version at the shapes its path gives it. Then it drives two
+paths through the port's public entry points:
+
+- FedDCL Algorithm 1 end to end at the width of the paper's mnist model
+  (784 -> m̃ = m̂ = 50, MLP 50-500-100-10; Experiment II layout d = 5 groups
+  x c = 4 users x 100 samples, 2000 anchor rows, 20 rounds x 4 local
+  epochs, batch 32): the Gram kernel's path;
+- the LLM serving path at full width and depth with random weights from a
+  seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
+  BatchedServer, and gemma2-2b prefill (fp32, 8192 tokens, past its
+  4096-token window): the flash-attention kernel's path, held against the
+  plain attention path of the same model.
 
 Each phase prints one JSON line. The line before the last lists every
 kernel with its launches on the main path, error and times; the last line
@@ -31,19 +39,27 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.api import FedDCL  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.federated import run_federated  # noqa: E402
 from repro_torch.data.partition import split_iid  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
+from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet): fp32 FFMA
-# outside the tensor cores, and device-memory bandwidth, in units per second.
-H100_SXM = {"fp32_flops": 67e12, "bytes": 3.35e12}
+# outside the tensor cores, bf16 on the tensor cores, and device-memory
+# bandwidth, in units per second.
+H100_SXM = {"fp32_flops": 67e12, "bf16_flops": 989e12, "bytes": 3.35e12}
 
 # the Experiment II layout at the width of the paper's mnist model
 D, C, N_IJ, M_TILDE, ANCHOR_R = 5, 4, 100, 50, 2000
@@ -56,6 +72,22 @@ EXTRA_SHAPES = [(3, 1037, 77),            # ragged edges in r and m
 GRAM_TOL = 1e-5          # kernel vs plain, relative Frobenius (fp32 FFMA)
 DEVICE_HOST_TOL = 1e-3   # the reference's device-vs-host bar
 ONBOARD_TOL = 1e-5       # incremental == recompute on device
+
+# flash attention: (name, B, H, KV, Sq, Sk, hd, window, softcap, q_offset)
+LLAMA = ARCHS["llama3.2-1b"]
+GEMMA = ARCHS["gemma2-2b"]
+FLASH_SHAPES = [
+    ("llama3.2-1b prefill", 4, 32, 8, 2048, 2048, 64, 0, 0.0, 0),
+    ("gemma2-2b local layer", 1, 8, 4, 8192, 8192, 256, 4096, 50.0, 0),
+    ("gemma2-2b global layer", 1, 8, 4, 8192, 8192, 256, 0, 50.0, 0),
+    ("q tail at q_offset", 4, 32, 8, 256, 2048, 64, 0, 0.0, 1792),
+    ("ragged", 2, 4, 2, 1000, 1000, 64, 0, 0.0, 0),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py:31
+LM_TOL = 1e-4            # kernel path vs plain path logits, relative, fp32
+PREFILL_B, PREFILL_S, PREFILL_CACHE = 4, 2048, 4096
+DECODE_STEPS = 32
+GEMMA_S = 8192           # > the 4096-token window: local layers mask
 
 
 def emit(obj) -> None:
@@ -96,6 +128,30 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def profile_device(fn):
+    """Run fn() once under torch.profiler: (host wall s, device s per
+    kernel name, kernels run). Only the device-side events are summed: a
+    CPU op's self device time repeats that of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel, kernels = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
+                             + e.self_device_time_total / 1e6)
+        if not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
+    check(sum(per_kernel.values()) > 0, "the profiler saw no device time")
+    return wall, per_kernel, kernels
+
+
 # -- phase 1 ---------------------------------------------------------------
 
 def phase_device():
@@ -105,15 +161,20 @@ def phase_device():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    build.load_library(gram_kernel.SOURCE)
+    sources = [gram_kernel.SOURCE, fa_kernel.SOURCE]
+    build.load_libraries(sources)
     build_s = time.perf_counter() - t0
-    ptxas = [l.strip() for l in build.build_log.get("gram.cu", "").splitlines()
-             if "registers" in l or "spill" in l]
+    ptxas = {src.name: [l.strip() for l in
+                        build.build_log.get(src.name, "").splitlines()
+                        if "registers" in l or "spill" in l or "Compiling" in l]
+             for src in sources}
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "nvcc_s": build.build_seconds.get("gram.cu"), "ptxas": ptxas})
+          "nvcc_s": {src.name: build.build_seconds.get(src.name)
+                     for src in sources},
+          "ptxas": ptxas})
     return smi
 
 
@@ -215,31 +276,19 @@ def phase_step4_profile(model):
     """One more federated round of the fitted model under torch.profiler:
     the device's busy share of step 4 (kernel time over wall time; the
     profiler's own overhead inflates the wall, so the share is a floor)."""
-    from torch.profiler import ProfilerActivity, profile
     loss = lambda p, x, y: mlp.mlp_per_example_loss(p, x, y, model.task)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_federated(loss, model.params_, model.setup_.fed_silos(),
-                      opt=adamw(model.lr), rounds=1,
-                      local_epochs=model.local_epochs,
-                      batch_size=model.batch_size, seed=model.seed + 2,
-                      device=model.device)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-                  for e in events)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    wall_s, per_kernel, kernels = profile_device(lambda: run_federated(
+        loss, model.params_, model.setup_.fed_silos(), opt=adamw(model.lr),
+        rounds=1, local_epochs=model.local_epochs,
+        batch_size=model.batch_size, seed=model.seed + 2,
+        device=model.device))
+    busy_s = sum(per_kernel.values())
     steps = D * model.local_epochs * -(-C * N_IJ // model.batch_size)
     row = {"phase": "step4_profile", "rounds": 1, "optimizer_steps": steps,
-           "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
-           "device_busy_share": busy_us / 1e6 / wall_s,
-           "kernel_launches": launches,
-           "launches_per_step": launches / steps}
+           "wall_s": wall_s, "device_busy_s": busy_s,
+           "device_busy_share": busy_s / wall_s,
+           "kernels_run": kernels, "kernels_per_step": kernels / steps}
     emit(row)
-    check(busy_us > 0, "the profiler saw no device time in step 4")
     return row
 
 
@@ -286,6 +335,262 @@ def phase_device_vs_host(model, data):
     return row
 
 
+# -- phase 5: flash attention, kernel vs plain -------------------------------
+
+def visible_pairs(Sq, Sk, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask lets through: the work the function
+    needs, whatever tiles a kernel visits."""
+    qpos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def sdpa_call(q, k, v, Sq, Sk, window, softcap, q_offset):
+    """One library call computing the same function, or None (SDPA has no
+    softcap). Model layout in, (B, H, S, hd) views to SDPA."""
+    if softcap:
+        return None
+    F = torch.nn.functional
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window == 0 and q_offset == 0 and Sq == Sk:
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def phase_flash_check(dev, peak):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for name, B, H, KV, Sq, Sk, hd, window, softcap, q_offset in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dtype)
+            kw = dict(causal=True, window=window, softcap=softcap,
+                      q_offset=q_offset)
+            out = fa_ops.flash_attention(q, k, v, **kw)
+            ref = fa_ops.flash_attention(q, k, v, backend="ref", **kw)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dtype]
+            diff = (out.float() - ref.float()).abs()
+            max_abs = float(diff.max())
+            excess = float((diff / (tol + tol * ref.float().abs())).max())
+            del out, ref, diff
+            pairs = visible_pairs(Sq, Sk, True, window, q_offset)
+            flops = 4.0 * hd * B * H * pairs
+            nbytes = float(q.element_size() * (2 * q.numel() + 2 * k.numel()))
+            t_ops = flops / peak["bf16_flops" if dtype == torch.bfloat16
+                                 else "fp32_flops"] * 1e3
+            t_bytes = nbytes / peak["bytes"] * 1e3
+            reps = 3 if flops > 1e11 else 10
+            ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps)
+            plain_ms = time_ms(lambda: fa_ops.flash_attention(
+                q, k, v, backend="ref", **kw), reps)
+            lib = sdpa_call(q, k, v, Sq, Sk, window, softcap, q_offset)
+            library_ms = time_ms(lib, reps) if lib is not None else None
+            row = {"phase": "flash_check", "shape": name,
+                   "B_H_KV_Sq_Sk_hd": [B, H, KV, Sq, Sk, hd],
+                   "window": window, "softcap": softcap,
+                   "q_offset": q_offset, "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": max_abs, "tol": tol,
+                   "err_over_bar": excess, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "visible_pairs": pairs, "tflops_per_s": flops / ms / 1e9}
+            emit(row)
+            rows.append(row)
+            check(excess <= 1.0, f"flash kernel vs plain at {name} {dtype}: "
+                                 f"max abs {max_abs} over the {tol} bar")
+            del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 6: llama3.2-1b prefill and decode --------------------------------
+
+def wall_s(fn, reps: int = 3) -> float:
+    """Median host wall time of fn() ending in a device synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def random_tokens(seed, shape, vocab, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, vocab, shape, dtype=np.int64),
+                           device=dev)
+
+
+def phase_llm_prefill(dev):
+    cfg = LLAMA
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = random_tokens(0, (PREFILL_B, PREFILL_S), cfg.vocab_size, dev)
+    step = make_prefill_step(cfg, cache_len=PREFILL_CACHE, device=dev)
+    fa_kernel.reset_launches()
+    logits, state, nxt = step(p16, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = fa_kernel.launches
+    check(launches == cfg.num_layers,
+          f"flash launches in one llama prefill: {launches} "
+          f"(expected {cfg.num_layers})")
+    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "bf16 prefill logits")
+    prefill_s = wall_s(lambda: step(p16, {"tokens": tokens}))
+    _, per_kernel, _ = profile_device(lambda: step(p16, {"tokens": tokens}))
+    dev_s = sum(per_kernel.values())
+    share = sum(t for k, t in per_kernel.items()
+                if "flash_fwd_kernel" in k) / dev_s
+
+    # fp32: the kernel path against the plain path of the same model, and
+    # prefill(prompt + t) against prefill(prompt) then one decode of t
+    kw = dict(cache_len=PREFILL_CACHE, compute_dtype=torch.float32,
+              cache_dtype=torch.float32, device=dev)
+    with_k = make_prefill_step(cfg, **kw)
+    plain = make_prefill_step(cfg, use_kernels=False, **kw)
+    tok1 = random_tokens(1, (1, PREFILL_S + 1), cfg.vocab_size, dev)
+    prompt = {"tokens": tok1[:, :PREFILL_S]}
+    lk, s32, n32 = with_k(p32, prompt)
+    lp, _, _ = plain(p32, prompt)
+    kernel_vs_plain = rel(lk.cpu(), lp.cpu())
+    lfull, _, _ = with_k(p32, {"tokens": tok1})
+    ldec, _ = make_serve_step(cfg, compute_dtype=torch.float32, device=dev)(
+        p32, s32, tok1[:, PREFILL_S:], n32)
+    prefill_vs_decode = rel(ldec.cpu(), lfull.cpu())
+    fp32_kernel_s = wall_s(lambda: with_k(p32, prompt), reps=1)
+    fp32_plain_s = wall_s(lambda: plain(p32, prompt), reps=1)
+    del s32
+    row = {"phase": "llm_prefill", "arch": cfg.name,
+           "params": cfg.param_count(), "init_s": init_s,
+           "bf16": {"batch": PREFILL_B, "seq": PREFILL_S,
+                    "cache_len": PREFILL_CACHE, "flash_launches": launches,
+                    "prefill_s": prefill_s,
+                    "prefill_tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
+                    "flash_share_of_device_time": share,
+                    "profiled_device_s": dev_s},
+           "fp32_b1": {"kernel_vs_plain_logits_rel": kernel_vs_plain,
+                       "prefill_plus_t_vs_decode_rel": prefill_vs_decode,
+                       "kernel_path_s": fp32_kernel_s,
+                       "plain_path_s": fp32_plain_s}}
+    emit(row)
+    check(kernel_vs_plain <= LM_TOL,
+          f"llama fp32 kernel vs plain logits: {kernel_vs_plain}")
+    check(prefill_vs_decode <= LM_TOL,
+          f"llama prefill(P+t) vs prefill(P)+decode(t): {prefill_vs_decode}")
+    return p32, p16, logits, state, nxt, row
+
+
+def phase_llm_decode(dev, p32, p16, logits, state, nxt):
+    cfg = LLAMA
+    serve_step = make_serve_step(cfg, device=dev)
+    tok = logits[:, 0].argmax(-1, keepdim=True)
+    pos = nxt.clone()
+
+    def decode_run():
+        nonlocal tok, pos
+        for _ in range(DECODE_STEPS):
+            out, _ = serve_step(p16, state, tok, pos)
+            tok = out[:, 0].argmax(-1, keepdim=True)
+            pos = pos + 1
+        return out
+
+    fa_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = decode_run()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(out).all()), "decode logits")
+    check(fa_kernel.launches == 0, "decode runs no flash kernel")
+    prof_wall, per_kernel, kernels = profile_device(decode_run)
+    busy_s = sum(per_kernel.values())
+
+    # BatchedServer at full width, as serve.py:main runs it
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=rng.integers(4, 12)),
+                    max_new=16) for i in range(8)]
+    server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev)
+    t0 = time.perf_counter()
+    outs = server.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    total = sum(len(v) for v in outs.values())
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    row = {"phase": "llm_decode", "arch": cfg.name,
+           "bf16": {"batch": PREFILL_B, "steps": DECODE_STEPS,
+                    "start_pos": PREFILL_S, "decode_s": decode_s,
+                    "ms_per_step": decode_s / DECODE_STEPS * 1e3,
+                    "decode_tokens_per_s":
+                        PREFILL_B * DECODE_STEPS / decode_s,
+                    "profiled_device_busy_share": busy_s / prof_wall,
+                    "device_ms_per_step": busy_s / DECODE_STEPS * 1e3,
+                    "kernels_per_step": kernels / DECODE_STEPS},
+           "server_fp32": {"requests": len(reqs), "slots": 4,
+                           "cache_len": 256, "max_new": 16,
+                           "prompt_tokens": prompt_tokens,
+                           "new_tokens": total, "serve_s": serve_s,
+                           "server_tokens_per_s": total / serve_s,
+                           "status": sorted(set(outs.status.values()))}}
+    emit(row)
+    check(set(outs.status.values()) == {"done"}
+          and all(len(v) == 16 for v in outs.values()),
+          f"server statuses {outs.status}")
+    return row
+
+
+# -- phase 7: gemma2-2b prefill past its window -------------------------------
+
+def phase_gemma2_prefill(dev):
+    cfg = GEMMA
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = bb.init_params(cfg, gen, torch.float32, device=dev)
+    tokens = {"tokens": random_tokens(2, (1, GEMMA_S), cfg.vocab_size, dev)}
+    kw = dict(cache_len=GEMMA_S, compute_dtype=torch.float32,
+              cache_dtype=torch.float32, device=dev)
+    with_k = make_prefill_step(cfg, **kw)
+    plain = make_prefill_step(cfg, use_kernels=False, **kw)
+    fa_kernel.reset_launches()
+    lk, _, _ = with_k(params, tokens)
+    torch.cuda.synchronize()
+    launches = fa_kernel.launches
+    lp, _, _ = plain(params, tokens)
+    err = rel(lk.cpu(), lp.cpu())
+    kernel_s = wall_s(lambda: with_k(params, tokens), reps=1)
+    plain_s = wall_s(lambda: plain(params, tokens), reps=1)
+    row = {"phase": "gemma2_prefill", "arch": cfg.name,
+           "params": cfg.param_count(), "batch": 1, "seq": GEMMA_S,
+           "window": cfg.sliding_window, "dtype": "float32",
+           "flash_launches": launches, "kernel_vs_plain_logits_rel": err,
+           "kernel_path_s": kernel_s, "plain_path_s": plain_s,
+           "prefill_tokens_per_s": GEMMA_S / kernel_s,
+           "logits_finite": bool(torch.isfinite(lk).all())}
+    emit(row)
+    check(launches == cfg.num_layers,
+          f"flash launches in one gemma2 prefill: {launches} "
+          f"(expected {cfg.num_layers})")
+    check(row["logits_finite"], "gemma2 logits")
+    check(err <= LM_TOL, f"gemma2 fp32 kernel vs plain logits: {err}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -302,11 +607,22 @@ def main() -> int:
     model, data, fit_row = phase_fit(dev)
     phase_step4_profile(model)
     phase_device_vs_host(model, data)
+    del model, data
+    flash_rows = phase_flash_check(dev, peak)
+    p32, p16, logits, state, nxt, prefill_row = phase_llm_prefill(dev)
+    phase_llm_decode(dev, p32, p16, logits, state, nxt)
+    del p32, p16, logits, state, nxt
+    torch.cuda.empty_cache()
+    phase_gemma2_prefill(dev)
     main_rows = rows[:len(MAIN_SHAPES)]
 
     def per_fit(key):
         return sum(n * r[key] for n, r in zip(MAIN_COUNTS, main_rows))
 
+    # the flash kernel's main path: llama3.2-1b's bf16 prefill, one launch
+    # per layer at the first FLASH_SHAPES row
+    fa_main = flash_rows[0]
+    n_fa = prefill_row["bf16"]["flash_launches"]
     emit({"kernels": [{
         "name": "gram_batched_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
@@ -317,7 +633,16 @@ def main() -> int:
         "bound_ms": per_fit("bound_ms"),
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in main_rows) else "bytes",
-        "library_ms": per_fit("library_ms")}]})
+        "library_ms": per_fit("library_ms")}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
+        "launches": n_fa, "max_abs_err": fa_main["max_abs_err"],
+        "ms": n_fa * fa_main["ms"], "plain_ms": n_fa * fa_main["plain_ms"],
+        "bound_ms": n_fa * fa_main["bound_ms"],
+        "bound_by": fa_main["bound_by"],
+        "library_ms": n_fa * fa_main["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

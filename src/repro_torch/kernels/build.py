@@ -2,7 +2,8 @@
 
 Each source under ``csrc/`` exposes a plain C function and is compiled
 alone into a shared library (``nvcc -shared``), which ``ctypes`` loads: no
-PyTorch headers, so a build takes seconds. The library's file name carries
+PyTorch headers, so a build takes seconds, and several sources build in
+parallel, one nvcc each. The library's file name carries
 a hash of the source and the flags, so an edited source rebuilds; the
 libraries land in ``kernels/build/``, which git ignores. A missing ``nvcc``
 or a failed build raises: there is no fallback on the CUDA path.
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,30 +41,50 @@ def find_nvcc() -> str:
                        "CUDA kernels of repro_torch are built at first use")
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """The loaded library built from `source`, building it if needed."""
-    source = Path(source)
-    key = str(source.resolve())
-    if key in _LIBS:
-        return _LIBS[key]
+def _lib_path(source: Path) -> Path:
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{source.stem}-{digest}.so"
-    if not lib_path.exists():
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
+def load_libraries(sources: Sequence[Path]) -> List[ctypes.CDLL]:
+    """The loaded libraries built from `sources`, building the missing ones
+    at once: one nvcc per source, all started together."""
+    sources = [Path(s) for s in sources]
+    builds = []
+    for source in sources:
+        lib_path = _lib_path(source)
+        if str(source.resolve()) in _LIBS or lib_path.exists():
+            continue
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        builds.append((source, lib_path, tmp, proc, time.perf_counter()))
+    failed = []
+    for source, lib_path, tmp, proc, t0 in builds:
+        out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {source}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+            failed.append(f"nvcc failed to build {source}:\n{out}\n{err}")
+            continue
         os.replace(tmp, lib_path)      # atomic: concurrent builds agree
         build_seconds[source.name] = time.perf_counter() - t0
-        build_log[source.name] = proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
-    _LIBS[key] = lib
-    return lib
+        build_log[source.name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    libs = []
+    for source in sources:
+        key = str(source.resolve())
+        if key not in _LIBS:
+            _LIBS[key] = ctypes.CDLL(str(_lib_path(source)))
+        libs.append(_LIBS[key])
+    return libs
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """The loaded library built from `source`, building it if needed."""
+    return load_libraries([source])[0]

@@ -1,0 +1,263 @@
+"""Backbone LM, the dense family: a uniform [attn + SwiGLU] stack (GQA,
+sliding window, softcap, qk-norm per config), with forward, prefill and
+cached single-token decode (counterpart of ``repro.models.backbone``).
+
+Parameters are stacked on a leading layer axis L, as in the reference, so
+its weights carry over as they are (``repro_torch.weights``); layers run in
+a Python loop, so gemma2's alternating local/global flag is a concrete bool
+per layer. The other families (moe, ssm, hybrid, MLA, modality prefixes)
+are not ported yet and raise NotImplementedError naming ROADMAP.md.
+
+``use_kernels`` (the reference's ``use_pallas``) sends the attention of
+forward and prefill through the flash-attention kernel; False runs the
+plain ``sdpa`` path. Decode runs no kernel, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Dict[str, Any]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.mla is not None or cfg.prefix_frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} (moe / ssm / hybrid / MLA / "
+            f"modality prefix) is not ported yet; only the dense family is. "
+            f"See ROADMAP.md, Queue 1")
+
+
+# ===========================================================================
+# init
+# ===========================================================================
+
+def _init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                      lead=()) -> Params:
+    p: Params = {"ln_attn": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+                 "ln_mlp": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+                 "attn": L.init_attention(gen, cfg, dtype, device, lead),
+                 "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                   lead)}
+    if cfg.post_block_norm:
+        p["ln_post_attn"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
+        p["ln_post_mlp"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                param_dtype=torch.float32, *,
+                device: DeviceLike = None) -> Params:
+    """Random weights in the reference's tree, drawn on `device` from
+    `generator` (a generator of that device; None on the `meta` device,
+    which only shapes). Torch cannot reproduce ``jax.random``: parity runs
+    load the reference's weights (``weights.lm_params_from_numpy``)."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    params: Params = {"embed": torch.empty((cfg.vocab_size, cfg.d_model),
+                                           dtype=torch.float32, device=dev)}
+    if dev.type != "meta":
+        params["embed"].normal_(0.0, 0.02, generator=generator)
+    params["embed"] = params["embed"].to(param_dtype)
+    params["ln_final"] = L.init_rmsnorm(cfg.d_model, param_dtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._dense_init(generator,
+                                          (cfg.d_model, cfg.vocab_size),
+                                          cfg.d_model, param_dtype, dev)
+    params["layers"] = _init_dense_block(generator, cfg, param_dtype, dev,
+                                         lead=(cfg.num_layers,))
+    return params
+
+
+def _layer(stacked: Params, i: int) -> Params:
+    """Layer i's params: views into the stacked tensors."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+# ===========================================================================
+# forward
+# ===========================================================================
+
+def _local_flags(cfg: ModelConfig, n: int) -> List[bool]:
+    if cfg.attn_variant == "sliding":
+        return [True] * n
+    if cfg.attn_variant == "alternating":
+        return [i % 2 == 0 for i in range(n)]
+    return [False] * n
+
+
+def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+    """-> (x (B, S, d), positions (B, S), loss_mask (B, S))."""
+    _check_ported(cfg)
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    loss_mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return x, positions, loss_mask
+
+
+def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                       positions, is_local: bool, use_kernels: bool,
+                       return_kv: bool = False):
+    h = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
+    attn, kv = L.multi_head_attention(lp["attn"], h, cfg, positions=positions,
+                                      is_local=is_local,
+                                      use_kernels=use_kernels, return_kv=True)
+    if cfg.post_block_norm:
+        attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
+    x = x + attn
+    h = L.apply_rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
+    out = L.apply_mlp(lp["mlp"], h)
+    if cfg.post_block_norm:
+        out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
+    if return_kv:
+        return x + out, kv
+    return x + out
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            use_kernels: bool = True, compute_dtype=torch.bfloat16,
+            return_logits: bool = True):
+    """-> (logits (B, T, V) fp32 | None, hidden (B, T, d),
+    {"loss_mask": (B, T)})."""
+    x, positions, loss_mask = embed_inputs(params, tokens, cfg)
+    x = x.to(compute_dtype)
+    for i, flag in enumerate(_local_flags(cfg, cfg.num_layers)):
+        x = _dense_block_apply(_layer(params["layers"], i), x, cfg,
+                               positions=positions, is_local=flag,
+                               use_kernels=use_kernels)
+    hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
+    logits = _lm_logits(params, hidden, cfg) if return_logits else None
+    return logits, hidden, {"loss_mask": loss_mask}
+
+
+def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (hidden @ head.to(hidden.dtype)).float()
+    if cfg.final_logit_softcap:
+        logits = (torch.tanh(logits / cfg.final_logit_softcap)
+                  * cfg.final_logit_softcap)
+    return logits
+
+
+# ===========================================================================
+# prefill: full-sequence forward that also fills the decode cache
+# ===========================================================================
+
+def _fill_cache(cache: Params, layer: int, entries, positions: torch.Tensor
+                ) -> None:
+    """Write one layer's per-position (k, v) entries (B, S, KV, hd) into the
+    ring cache, keeping the last min(S, cache_len) positions at slots
+    pos % cache_len. The reference stacks every layer's entries and fills
+    once; here each layer fills as it goes, so the stack never exists."""
+    C = cache["k"].shape[2]
+    S = positions.shape[0]
+    W = min(S, C)
+    slots = (positions[S - W:] % C).long()
+    for name, ent in zip(("k", "v"), entries):
+        cache[name][layer][:, slots] = ent[:, S - W:].to(cache[name].dtype)
+
+
+def _entries_to_cache(cache: Params, positions: torch.Tensor) -> None:
+    """The positions of the kept entries, in every layer's pos array."""
+    C = cache["pos"].shape[2]
+    S = positions.shape[0]
+    W = min(S, C)
+    pos = positions[S - W:]
+    cache["pos"][:, :, (pos % C).long()] = pos.to(cache["pos"].dtype)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache_len: int, use_kernels: bool = True,
+            compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
+    """Process a full prompt, returning (last-position logits (B, 1, V),
+    decode state matching init_decode_state, next position (B,))."""
+    x, positions, _ = embed_inputs(params, tokens, cfg)
+    x = x.to(compute_dtype)
+    B, T = positions.shape
+    pos1d = positions[0]
+    cache = L.init_kv_cache(cfg, B, cache_len, cfg.num_layers, cache_dtype,
+                            x.device)
+    _entries_to_cache(cache, pos1d)
+    for i, flag in enumerate(_local_flags(cfg, cfg.num_layers)):
+        x, kv = _dense_block_apply(_layer(params["layers"], i), x, cfg,
+                                   positions=positions, is_local=flag,
+                                   use_kernels=use_kernels, return_kv=True)
+        _fill_cache(cache, i, kv, pos1d)
+    hidden = L.apply_rmsnorm(params["ln_final"], x[:, -1:], cfg.norm_eps)
+    logits = _lm_logits(params, hidden, cfg)
+    next_pos = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    return logits, {"cache": cache}, next_pos
+
+
+# ===========================================================================
+# decode (single token, cached)
+# ===========================================================================
+
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=torch.bfloat16, *,
+                      device: DeviceLike = None) -> Params:
+    """Cache tree for serve_step. cache_len should be min(seq_len, window)
+    for pure sliding-window configs."""
+    _check_ported(cfg)
+    return {"cache": L.init_kv_cache(cfg, batch, cache_len, cfg.num_layers,
+                                     dtype, resolve_device(device))}
+
+
+def decode_step(params: Params, state: Params, tokens: torch.Tensor,
+                cur_pos: torch.Tensor, cfg: ModelConfig, *,
+                compute_dtype=torch.bfloat16):
+    """One decode step. tokens: (B, 1) int; cur_pos: (B,) absolute position.
+    Returns (logits (B, 1, V) fp32, state). The caches are updated in
+    place, so the returned state is `state` itself (the reference returns
+    an updated copy)."""
+    _check_ported(cfg)
+    x = params["embed"][tokens[:, 0].long()][:, None]
+    if cfg.scale_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    x = x.to(compute_dtype)
+    x = _decode_attn_stack(params["layers"], state["cache"], x, cur_pos, cfg,
+                           n=cfg.num_layers)
+    hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
+    return _lm_logits(params, hidden, cfg), state
+
+
+def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
+                       cur_pos: torch.Tensor, cfg: ModelConfig, *, n: int):
+    """Run the n layers on one token, writing each layer's cache in place."""
+    for i, flag in enumerate(_local_flags(cfg, n)):
+        lp = _layer(stacked, i)
+        hn = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
+        attn = L.decode_attention(
+            lp["attn"], hn, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],
+            cache_pos=cache["pos"][i], cur_pos=cur_pos, is_local=flag)
+        if cfg.post_block_norm:
+            attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
+        x = x + attn
+        hn = L.apply_rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
+        out = L.apply_mlp(lp["mlp"], hn)
+        if cfg.post_block_norm:
+            out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
+        x = x + out
+    return x
+
+
+# ===========================================================================
+# parameter counts (exact — from the port's init on the meta device)
+# ===========================================================================
+
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """Parameters of `init_params(cfg)`, shaped on the `meta` device (no
+    memory, no draws)."""
+    shapes = init_params(cfg, None, torch.float32, device="meta")
+    return sum(t.numel() for t in tree_leaves(shapes))

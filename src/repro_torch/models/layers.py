@@ -1,0 +1,304 @@
+"""Layer library, the dense-family subset: RMSNorm, RoPE, attention (GQA /
+sliding window / softcap / qk-norm) for prefill and for cached decode, and
+the SwiGLU MLP (counterpart of ``repro.models.layers``).
+
+Functional style, as the reference: ``init_*`` builds a dict of tensors,
+``apply_*`` consumes it, in the reference's layouts (``wq`` (d, H, hd),
+``wo`` (H, hd, d), ...), so weights carry over without transposes. An
+``init_*`` takes ``lead``, the shape of leading stack axes (the backbone
+stacks layers on axis 0). The reference's sharding hints (``constrain``)
+have no counterpart on one card, and its scan/unroll helpers none in eager
+torch: layers loop in Python, so each layer's local/global flag is a
+concrete bool.
+
+Dtype convention: params live in ``param_dtype``; activations are computed
+in ``compute_dtype`` with fp32 where it matters (softmax, norms, RoPE).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+Params = Dict[str, Any]
+Shape = Tuple[int, ...]
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+def _dense_init(gen: torch.Generator, shape: Shape, in_axis_size: int, dtype,
+                device) -> torch.Tensor:
+    """Truncated-normal fan-in init: N(0, 1/fan_in) cut at ±3 std. Drawn in
+    fp32 on `device` from `gen` (a generator of that device); a `meta`
+    tensor is only shaped."""
+    std = 1.0 / math.sqrt(max(in_axis_size, 1))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
+                                    generator=gen)
+    return t.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+# --------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype, device, lead: Shape = ()) -> Params:
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5
+                  ) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * p["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> sin/cos of shape (..., head_dim//2), fp32."""
+    half = head_dim // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(theta) / half))
+    ang = positions.float()[..., None] * freqs               # (..., half)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., head_dim); sin/cos broadcastable to (..., head_dim//2).
+
+    Rotates pairs (x[..., :half], x[..., half:]) — "half" layout.
+    """
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _bcast_rope(sin: torch.Tensor, cos: torch.Tensor):
+    """(B, S, half) -> (B, S, 1, half) to broadcast over heads."""
+    return sin[..., None, :], cos[..., None, :]
+
+
+# --------------------------------------------------------------------------
+# Attention (GQA, sliding window, softcap, qk-norm) — forward/prefill path
+# --------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                   lead: Shape = ()) -> Params:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, lead + (d, H, hd), d, dtype, device),
+        "wk": _dense_init(gen, lead + (d, KV, hd), d, dtype, device),
+        "wv": _dense_init(gen, lead + (d, KV, hd), d, dtype, device),
+        "wo": _dense_init(gen, lead + (H, hd, d), H * hd, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, device, lead)
+        p["k_norm"] = init_rmsnorm(hd, dtype, device, lead)
+    return p
+
+
+def _heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, nh, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+
+
+def _heads_out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    nh, hd, d = w.shape
+    return ctx.flatten(-2) @ w.to(ctx.dtype).reshape(nh * hd, d)
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return torch.tanh(logits / cap) * cap
+    return logits
+
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                   is_local: bool, window: int) -> torch.Tensor:
+    """Boolean (broadcast) mask: True = attend. q_pos (..., Sq), k_pos
+    (..., Sk)."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    causal = k <= q
+    if is_local:
+        return causal & (k > q - window)
+    return causal
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+    hd = cfg.head_dim
+    q = _heads_in(x, p["wq"])
+    k = _heads_in(x, p["wk"])
+    v = _heads_in(x, p["wv"])
+    if cfg.qk_norm:
+        q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    sin, cos = rope_angles(positions, hd, cfg.rope_theta)
+    sin_b, cos_b = _bcast_rope(sin, cos)
+    return apply_rope(q, sin_b, cos_b), apply_rope(k, sin_b, cos_b), v
+
+
+def multi_head_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                         positions: torch.Tensor, is_local: bool = False,
+                         use_kernels: bool = True, return_kv: bool = False):
+    """Full-sequence attention. x: (B, S, d); positions: (B, S), the
+    sequence's own positions 0..S-1. With return_kv, also returns the
+    rope'd (k, v) for the prefill cache fill.
+
+    use_kernels=True sends attention through ``flash_attention`` (the CUDA
+    kernel on a card, its plain version on the CPU); False through ``sdpa``,
+    the plain path the reference runs without Pallas."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    if use_kernels:
+        ctx = fa_ops.flash_attention(
+            q, k, v, causal=True,
+            window=cfg.sliding_window if is_local else 0,
+            softcap=cfg.attn_logit_softcap)
+    else:
+        ctx = sdpa(q, k, v, q_pos=positions, k_pos=positions,
+                   is_local=is_local, window=cfg.sliding_window,
+                   softcap=cfg.attn_logit_softcap)
+    out = _heads_out(ctx, p["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+QCHUNK_THRESHOLD = 4096     # q-chunk full-sequence attention above this Sq
+QCHUNK = 1024               # query-block size for the chunked plain path
+
+
+def sdpa_qchunked(q, k, v, *, q_pos, k_pos, is_local, window, softcap,
+                  chunk: int = QCHUNK) -> torch.Tensor:
+    """Query-block-chunked attention: never materializes the full Sq×Sk
+    logit matrix (peak temp O(chunk·Sk) per head)."""
+    Sq = q.shape[1]
+    if Sq % chunk:
+        return sdpa_reference(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                              is_local=is_local, window=window,
+                              softcap=softcap)
+    outs = [sdpa_reference(q[:, i:i + chunk], k, v,
+                           q_pos=q_pos[:, i:i + chunk], k_pos=k_pos,
+                           is_local=is_local, window=window, softcap=softcap)
+            for i in range(0, Sq, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def sdpa(q, k, v, *, q_pos, k_pos, is_local, window, softcap) -> torch.Tensor:
+    if q.shape[1] > QCHUNK_THRESHOLD:
+        return sdpa_qchunked(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                             is_local=is_local, window=window, softcap=softcap)
+    return sdpa_reference(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                          is_local=is_local, window=window, softcap=softcap)
+
+
+def sdpa_reference(q, k, v, *, q_pos, k_pos, is_local, window,
+                   softcap) -> torch.Tensor:
+    """Masked GQA attention, fp32 softmax. q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd).
+    KV heads are expanded to the full H (head h reads kv head h // G)."""
+    hd = q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    logits = torch.einsum("bqhk,bshk->bhqs", q, k).float()
+    logits = logits / math.sqrt(hd)
+    logits = _softcap(logits, softcap)
+    mask = attention_mask(q_pos, k_pos, is_local=is_local, window=window)
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+
+
+# --------------------------------------------------------------------------
+# Attention — single-token decode against a ring-buffer KV cache
+# --------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                  num_layers: int, dtype, device) -> Params:
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (num_layers, batch, cache_len, KV, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position stored per slot; -1 = empty
+        "pos": torch.full((num_layers, batch, cache_len), -1,
+                          dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cache_pos: torch.Tensor, cur_pos: torch.Tensor,
+                     is_local: bool = False):
+    """One-token decode. x: (B, 1, d); cache_k/v: (B, C, KV, hd);
+    cache_pos: (B, C) absolute positions; cur_pos: (B,) int.
+
+    Returns out (B,1,d). Ring-buffer write at cur_pos % C, so a
+    sliding-window cache uses C = window. The write is IN PLACE into the
+    given caches (the reference returns updated copies). The reference's
+    ``decode_expand_kv`` / ``decode_cache_seq`` variants compute the same
+    function as this default GQA-grouped branch and take it.
+    """
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C = cache_k.shape[1]
+    q, k, v = _qkv(p, x, cfg, cur_pos[:, None])
+
+    slot = (cur_pos % C).long()                                 # (B,)
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    cache_pos[bidx, slot] = cur_pos.to(cache_pos.dtype)
+
+    G = H // KV
+    valid = (cache_pos >= 0) & (cache_pos <= cur_pos[:, None])    # (B, C)
+    if is_local:
+        valid = valid & (cache_pos > cur_pos[:, None] - cfg.sliding_window)
+    qg = q.reshape(B, KV, G, hd)                                  # Sq==1
+    kc = cache_k.to(q.dtype).permute(0, 2, 3, 1)                  # (B,KV,hd,C)
+    logits = torch.matmul(qg, kc).float()                         # (B,KV,G,C)
+    logits = _softcap(logits / math.sqrt(hd), cfg.attn_logit_softcap)
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    vc = cache_v.to(q.dtype).permute(0, 2, 1, 3)                  # (B,KV,C,hd)
+    ctx = torch.matmul(probs, vc).reshape(B, 1, H, hd)
+    return _heads_out(ctx, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, device,
+             lead: Shape = ()) -> Params:
+    return {
+        "w_gate": _dense_init(gen, lead + (d, d_ff), d, dtype, device),
+        "w_up": _dense_init(gen, lead + (d, d_ff), d, dtype, device),
+        "w_down": _dense_init(gen, lead + (d_ff, d), d_ff, dtype, device),
+    }
+
+
+def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)

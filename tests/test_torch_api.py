@@ -22,6 +22,13 @@ from repro.data.tabular import make_dataset, train_test_split  # noqa: E402
 from repro.models import mlp as jmlp  # noqa: E402
 from repro_torch.api import FedDCL as TFedDCL  # noqa: E402
 from repro_torch.weights import mlp_params_to_numpy  # noqa: E402
+from _jax_oracle import oracle_on_cpu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracle_on_cpu():
+    """The reference runs on the CPU at fp32 precision (tests/_jax_oracle.py)."""
+    yield from oracle_on_cpu()
 
 
 def _gap(what: str, value: float, bar: float) -> None:

@@ -15,6 +15,14 @@ pytest.importorskip("jax")
 
 from repro.core import collab as jc  # noqa: E402
 from repro_torch.core import collab as tc  # noqa: E402
+from _jax_oracle import oracle_on_cpu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracle_on_cpu():
+    """The reference runs on the CPU at fp32 precision (tests/_jax_oracle.py)."""
+    yield from oracle_on_cpu()
+
 
 DEV = dict(device="cpu")
 

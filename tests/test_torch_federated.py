@@ -26,6 +26,13 @@ from repro_torch.core import federated as tfed  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.optim import adamw as tadamw, sgd as tsgd  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from _jax_oracle import oracle_on_cpu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracle_on_cpu():
+    """The reference runs on the CPU at fp32 precision (tests/_jax_oracle.py)."""
+    yield from oracle_on_cpu()
 
 
 def _np_tree(p):

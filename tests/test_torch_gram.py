@@ -14,6 +14,14 @@ import torch
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.gram import ops as tops
 from repro_torch.kernels.gram import ref as tref
+from _jax_oracle import oracle_on_cpu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracle_on_cpu():
+    """The reference runs on the CPU at fp32 precision (tests/_jax_oracle.py)."""
+    yield from oracle_on_cpu()
+
 
 TOL = 1e-5
 

@@ -26,6 +26,11 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.gram.kernel" in mods and "repro_torch.api" in mods
+    assert {"repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.models.layers", "repro_torch.models.backbone",
+            "repro_torch.configs.gemma2_2b", "repro_torch.launch.steps",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -78,6 +83,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert collab.DeviceBackend(device="cpu").device.type == "cpu"
     assert FedDCL(m_tilde=2, device="cpu").device.type == "cpu"
+
+
+def test_llm_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs import REDUCED
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import backbone as bb
+    cfg = REDUCED["llama3.2-1b"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: bb.init_params(cfg, gen),
+                 lambda: bb.init_decode_state(cfg, 1, 8),
+                 lambda: steps.make_prefill_step(cfg, cache_len=8),
+                 lambda: steps.make_serve_step(cfg),
+                 lambda: serve.BatchedServer(cfg, None),
+                 lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params = bb.init_params(cfg, gen, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    step = steps.make_prefill_step(cfg, cache_len=8, device="cpu")
+    logits, state, nxt = step(params, {"tokens": np.zeros((1, 5), np.int32)})
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert state["cache"]["k"].device.type == "cpu" and int(nxt[0]) == 5
+    assert serve.BatchedServer(cfg, params, device="cpu").device.type == "cpu"
 
 
 def test_cpu_fit_predict_score_end_to_end():

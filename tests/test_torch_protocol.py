@@ -16,6 +16,14 @@ from repro.core import protocol as jp  # noqa: E402
 from repro.data.partition import split_iid  # noqa: E402
 from repro.data.tabular import make_dataset, train_test_split  # noqa: E402
 from repro_torch.core import protocol as tp  # noqa: E402
+from _jax_oracle import oracle_on_cpu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracle_on_cpu():
+    """The reference runs on the CPU at fp32 precision (tests/_jax_oracle.py)."""
+    yield from oracle_on_cpu()
+
 
 DEV = dict(device="cpu")
 

@@ -12,6 +12,13 @@ from repro.data import partition as jpart, tabular as jtab  # noqa: E402
 from repro_torch.configs.feddcl_mlp import PAPER_MLPS as T_MLPS  # noqa: E402
 from repro_torch.core import anchor as tanchor, mappings as tmap  # noqa: E402
 from repro_torch.data import partition as tpart, tabular as ttab  # noqa: E402
+from _jax_oracle import oracle_on_cpu  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracle_on_cpu():
+    """The reference runs on the CPU at fp32 precision (tests/_jax_oracle.py)."""
+    yield from oracle_on_cpu()
 
 
 def test_configs_equal():
