@@ -15,7 +15,12 @@ paths through the port's public entry points:
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
   BatchedServer, and gemma2-2b prefill (fp32, 8192 tokens, past its
   4096-token window): the flash-attention kernel's path, held against the
-  plain attention path of the same model.
+  plain attention path of the same model;
+- the rwkv6-3b training path at full width and depth with random weights
+  from a seed, under TrainConfig's defaults (params fp32, compute bf16,
+  AdamW fp32, remat on): TokenStream batches of 2 x 1024 tokens through
+  make_train_step for a few steps: the WKV6 kernel's path, its loss held
+  against the plain WKV6 path of the same model in fp32.
 
 Each phase prints one JSON line. The line before the last lists every
 kernel with its launches on the main path, error and times; the last line
@@ -39,22 +44,26 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.api import FedDCL  # noqa: E402
-from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs import ARCHS, InputShape, TrainConfig  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.federated import run_federated  # noqa: E402
 from repro_torch.data.partition import split_iid  # noqa: E402
+from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noqa: E402
+                                      make_train_step)
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet): fp32 FFMA
 # outside the tensor cores, bf16 on the tensor cores, and device-memory
@@ -88,6 +97,14 @@ LM_TOL = 1e-4            # kernel path vs plain path logits, relative, fp32
 PREFILL_B, PREFILL_S, PREFILL_CACHE = 4, 2048, 4096
 DECODE_STEPS = 32
 GEMMA_S = 8192           # > the 4096-token window: local layers mask
+
+# WKV6: (name, B, S, H, K, V); the first is rwkv6-3b's train shape
+RWKV = ARCHS["rwkv6-3b"]
+WKV_SHAPES = [("rwkv6-3b train", 2, 1024, 40, 64, 64),
+              ("ragged K", 1, 96, 3, 24, 40)]
+WKV_ATOL, WKV_RTOL = 2e-4, 2e-3   # tests/test_kernels.py, wkv6 cases
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
+GRAD_LAYERS = 2          # depth of the full-width model-level gradient check
 
 
 def emit(obj) -> None:
@@ -152,6 +169,20 @@ def profile_device(fn):
     return wall, per_kernel, kernels
 
 
+def profile_range_device_s(fn, name: str) -> float:
+    """Run fn() once under torch.profiler: the device seconds of the
+    kernels launched inside every ``record_function(name)`` range."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.key == name) / 1e6
+    check(total > 0, f"the profiler saw no device time in {name!r}")
+    return total
+
+
 # -- phase 1 ---------------------------------------------------------------
 
 def phase_device():
@@ -161,7 +192,7 @@ def phase_device():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = [gram_kernel.SOURCE, fa_kernel.SOURCE]
+    sources = [gram_kernel.SOURCE, fa_kernel.SOURCE, wkv_kernel.SOURCE]
     build.load_libraries(sources)
     build_s = time.perf_counter() - t0
     ptxas = {src.name: [l.strip() for l in
@@ -591,6 +622,213 @@ def phase_gemma2_prefill(dev):
     return row
 
 
+# -- phase 8: WKV6, kernel vs plain -------------------------------------------
+
+def wkv6_inputs(gen, B, S, H, K, V, dev):
+    """r, k, v, log_w, u as the reference's tests draw them."""
+    n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    lw = -torch.exp(torch.clamp(n(B, S, H, K), -8.0, 1.6))
+    return n(B, S, H, K), n(B, S, H, K), n(B, S, H, V), lw, n(H, K) * 0.3
+
+
+def leaf_rel_max(a_tree, b_tree) -> float:
+    return max(rel(a.float().cpu(), b.float().cpu())
+               for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)))
+
+
+def loss_grads(cfg, params, batch, use_kernels):
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    loss, _ = bb.loss_fn(live, batch, cfg, use_kernels=use_kernels,
+                         remat=False, compute_dtype=torch.float32)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def phase_wkv6_check(dev, peak):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for name, B, S, H, K, V in WKV_SHAPES:
+        args = wkv6_inputs(gen, B, S, H, K, V, dev)
+        out = wkv_ops.wkv6(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for backend in ("scan", "chunked"):
+            ref = wkv_ops.wkv6(*args, backend=backend)
+            diff = (out - ref).abs()
+            errs[backend] = (float(diff.max()), float(
+                (diff / (WKV_ATOL + WKV_RTOL * ref.abs())).max()))
+        ms = time_ms(lambda: wkv_ops.wkv6(*args), 20)
+        plain_ms = time_ms(lambda: wkv_ops.wkv6(*args, backend="chunked"), 20)
+        scan_ms = time_ms(lambda: wkv_ops.wkv6(*args, backend="scan"), 2)
+        # per (token, head): 4KV flops; r, k, log_w, v read, o written once
+        pairs = B * S * H
+        flops = 4.0 * K * V * pairs
+        nbytes = 4.0 * ((3 * K + 2 * V) * pairs + H * K)
+        t_ops = flops / peak["fp32_flops"] * 1e3
+        t_bytes = nbytes / peak["bytes"] * 1e3
+        row = {"phase": "wkv6_check", "shape": name,
+               "B_S_H_K_V": [B, S, H, K, V],
+               "max_abs_err_vs_scan": errs["scan"][0],
+               "max_abs_err_vs_chunked": errs["chunked"][0],
+               "err_over_bar": max(e[1] for e in errs.values()),
+               "ms": ms, "plain_ms": plain_ms, "scan_ms": scan_ms,
+               "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bytes_bound_ms": t_bytes, "operations_bound_ms": t_ops,
+               "gbytes_per_s": nbytes / ms / 1e6}
+        emit(row)
+        rows.append(row)
+        check(row["err_over_bar"] <= 1.0,
+              f"wkv6 kernel vs plain at {name}: {errs}")
+        del args, out
+
+    # gradients: WKV6Function (kernel forward, chunked backward) against
+    # autograd of the plain chunked form, at the train shape ...
+    _, B, S, H, K, V = WKV_SHAPES[0]
+    args = wkv6_inputs(gen, B, S, H, K, V, dev)
+    cot = torch.randn((B, S, H, V), generator=gen, device=dev)
+    ga = [t.clone().requires_grad_() for t in args]
+    gb = [t.clone().requires_grad_() for t in args]
+    (wkv_ops.wkv6(*ga) * cot).sum().backward()
+    (wkv_ops.wkv6(*gb, backend="chunked") * cot).sum().backward()
+    op_grad_rel = max(rel(a.grad.cpu(), b.grad.cpu()) for a, b in zip(ga, gb))
+    # what WKV6Function.backward runs once per layer of a train step
+    recompute_ms = time_ms(lambda: torch.autograd.grad(
+        wkv_ops.ref.wkv6_chunked(*gb), gb, cot), 10)
+    rows[0]["backward_recompute_ms"] = recompute_ms
+    del args, ga, gb, cot
+    # ... and of a full-width rwkv6-3b at reduced depth, fp32, kernel path
+    # against plain path
+    cfg = RWKV.with_overrides(num_layers=GRAD_LAYERS)
+    params = bb.init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                            device=dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in
+         TokenStream(cfg.vocab_size, TRAIN_S, 1, seed=1).batch(0).items()}
+    lk, gk = loss_grads(cfg, params, b, True)
+    lp, gp = loss_grads(cfg, params, b, False)
+    model_grad_rel = leaf_rel_max(gk, gp)
+    row = {"phase": "wkv6_grad_check", "op_shape": list(WKV_SHAPES[0][1:]),
+           "op_grad_rel_max": op_grad_rel,
+           "backward_recompute_ms": recompute_ms, "model_layers": GRAD_LAYERS,
+           "model_tokens": TRAIN_S, "model_loss_rel": rel(lk, lp),
+           "model_grad_rel_max": model_grad_rel}
+    emit(row)
+    check(op_grad_rel <= LM_TOL, f"WKV6Function gradients: {op_grad_rel}")
+    check(model_grad_rel <= LM_TOL and rel(lk, lp) <= LM_TOL,
+          f"rwkv6 kernel vs plain path gradients: {model_grad_rel}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 9: rwkv6-3b training at full width --------------------------------
+
+def phase_rwkv6_train(dev, wkv_main):
+    cfg = RWKV
+    # TrainConfig's defaults (params fp32, compute bf16, AdamW fp32, remat
+    # on, lr 3e-4, wd 0.1, clip 1.0), warm-up shortened to the run
+    tc = TrainConfig(model=cfg, shape=InputShape("chip", TRAIN_S, TRAIN_B,
+                                                 "train"),
+                     warmup_steps=2, total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    params = bb.init_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                            device=dev)
+    step, opt = make_train_step(cfg, tc, device=dev)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    stream = TokenStream(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    losses, step_s, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    wkv_kernel.reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = wkv_kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, stream.batch(i))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(wkv_kernel.launches - before)
+    launches = wkv_kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady_s = statistics.median(step_s[1:])
+
+    wall, per_kernel, kernels = profile_device(
+        lambda: step(params, opt_state, stream.batch(TRAIN_STEPS)))
+    dev_s = sum(per_kernel.values())
+    wkv_s = sum(t for k, t in per_kernel.items() if "wkv6_fwd_kernel" in k)
+    recompute_s = profile_range_device_s(
+        lambda: step(params, opt_state, stream.batch(TRAIN_STEPS + 1)),
+        wkv_ops.BACKWARD_RANGE)
+    del opt_state
+    torch.cuda.empty_cache()
+
+    # fp32, no autograd: the kernel path's loss and final hidden states
+    # against the plain path's
+    b = {k: torch.as_tensor(v, device=dev) for k, v in
+         TokenStream(cfg.vocab_size, TRAIN_S, 1, seed=2).batch(0).items()}
+    f32 = dict(compute_dtype=torch.float32)
+    with torch.no_grad():
+        wkv_kernel.reset_launches()
+        t0 = time.perf_counter()
+        lk = float(bb.loss_fn(params, b, cfg, **f32)[0])
+        kernel_s = time.perf_counter() - t0
+        fp32_launches = wkv_kernel.launches
+        t0 = time.perf_counter()
+        lp = float(bb.loss_fn(params, b, cfg, use_kernels=False, **f32)[0])
+        plain_s = time.perf_counter() - t0
+        hk = bb.forward(params, b["tokens"], cfg, return_logits=False,
+                        **f32)[1]
+        hp = bb.forward(params, b["tokens"], cfg, use_kernels=False,
+                        return_logits=False, **f32)[1]
+        hidden_rel = rel(hk.cpu(), hp.cpu())
+        del hk, hp
+    row = {"phase": "rwkv6_train", "arch": cfg.name,
+           "params": cfg.param_count(),
+           "train_config": {"param_dtype": tc.param_dtype,
+                            "compute_dtype": tc.compute_dtype,
+                            "opt_state_dtype": tc.opt_state_dtype,
+                            "optimizer": tc.optimizer, "remat": tc.remat,
+                            "learning_rate": tc.learning_rate,
+                            "warmup_steps": tc.warmup_steps},
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+           "init_s": init_s, "params_and_opt_state_gb": state_gb,
+           "losses": losses, "loss_fell": losses[-1] < losses[0],
+           "step_s": step_s, "steady_step_s": steady_s,
+           "train_tokens_per_s": TRAIN_B * TRAIN_S / steady_s,
+           "max_memory_allocated_gb": peak_gb,
+           "wkv6_launches": launches, "wkv6_launches_per_step": per_step,
+           "profiled_step_wall_s": wall, "profiled_device_s": dev_s,
+           "device_busy_share": dev_s / wall, "kernels_per_step": kernels,
+           "wkv6_share_of_device_time": wkv_s / dev_s,
+           "backward_recompute_device_s": recompute_s,
+           "backward_recompute_share_of_device_time": recompute_s / dev_s,
+           # the same two shares from CUDA-event times of the kernel and of
+           # the recompute at the train shape (phase wkv6_check), over the
+           # unprofiled step
+           "wkv6_event_share_of_step": per_step[-1] * wkv_main["ms"] / 1e3
+                                       / steady_s,
+           "backward_recompute_event_share_of_step":
+               cfg.num_layers * wkv_main["backward_recompute_ms"] / 1e3
+               / steady_s,
+           "fp32_b1": {"loss_kernel_path": lk, "loss_plain_path": lp,
+                       "rel": rel(lk, lp), "hidden_rel": hidden_rel,
+                       "wkv6_launches": fp32_launches,
+                       "kernel_path_s": kernel_s, "plain_path_s": plain_s}}
+    emit(row)
+    check(all(np.isfinite(losses)), f"rwkv6 train losses {losses}")
+    check(all(n >= cfg.num_layers for n in per_step),
+          f"wkv6 launches per train step {per_step}")
+    check(fp32_launches == cfg.num_layers,
+          f"wkv6 launches in the fp32 loss: {fp32_launches}")
+    check(row["fp32_b1"]["rel"] <= LM_TOL and hidden_rel <= LM_TOL,
+          f"rwkv6 fp32 loss kernel vs plain path: {row['fp32_b1']}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -614,6 +852,9 @@ def main() -> int:
     del p32, p16, logits, state, nxt
     torch.cuda.empty_cache()
     phase_gemma2_prefill(dev)
+    torch.cuda.empty_cache()
+    wkv_rows = phase_wkv6_check(dev, peak)
+    train_row = phase_rwkv6_train(dev, wkv_rows[0])
     main_rows = rows[:len(MAIN_SHAPES)]
 
     def per_fit(key):
@@ -623,6 +864,10 @@ def main() -> int:
     # per layer at the first FLASH_SHAPES row
     fa_main = flash_rows[0]
     n_fa = prefill_row["bf16"]["flash_launches"]
+    # the WKV6 kernel's main path: the rwkv6-3b train run, every launch at
+    # the first WKV_SHAPES row (no PyTorch call computes WKV6: no library)
+    wkv_main = wkv_rows[0]
+    n_wkv = train_row["wkv6_launches"]
     emit({"kernels": [{
         "name": "gram_batched_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
@@ -642,7 +887,16 @@ def main() -> int:
         "ms": n_fa * fa_main["ms"], "plain_ms": n_fa * fa_main["plain_ms"],
         "bound_ms": n_fa * fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
-        "library_ms": n_fa * fa_main["library_ms"]}]})
+        "library_ms": n_fa * fa_main["library_ms"]}, {
+        "name": "wkv6_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:70",
+        "launches": n_wkv, "max_abs_err": max(
+            wkv_main["max_abs_err_vs_scan"],
+            wkv_main["max_abs_err_vs_chunked"]),
+        "ms": n_wkv * wkv_main["ms"], "plain_ms": n_wkv * wkv_main["plain_ms"],
+        "bound_ms": n_wkv * wkv_main["bound_ms"],
+        "bound_by": wkv_main["bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,13 @@ import dataclasses
 
 from repro_torch.configs.base import (
     INPUT_SHAPES,
+    FederatedConfig,
     InputShape,
     MLAConfig,
     ModelConfig,
     MoEConfig,
     SSMConfig,
+    TrainConfig,
 )
 
 from repro_torch.configs import (  # noqa: E402
@@ -96,5 +98,6 @@ REDUCED = {name: reduced(cfg) for name, cfg in ARCHS.items()}
 
 __all__ = [
     "ARCHS", "REDUCED", "INPUT_SHAPES", "get_arch", "reduced",
-    "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "InputShape",
+    "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig",
+    "InputShape", "FederatedConfig", "TrainConfig",
 ]

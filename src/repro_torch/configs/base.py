@@ -1,14 +1,15 @@
 """Config dataclasses for architectures and input shapes.
 
-The port's own copy of ``repro.configs.base`` (the model side; the train
-and federated configs come with the training slice). Every assigned
-architecture (see configs/<arch>.py) instantiates ModelConfig. Configs are
-plain frozen dataclasses so they hash and compare; no torch imports here.
+The port's own copy of ``repro.configs.base``, field for field. Every
+assigned architecture (see configs/<arch>.py) instantiates ModelConfig;
+TrainConfig and FederatedConfig describe a training run. Configs are plain
+frozen dataclasses so they hash and compare; no torch imports here, and
+dtype fields stay strings, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -131,6 +132,47 @@ class InputShape:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+@dataclass(frozen=True)
+class FederatedConfig:
+    """The paper's technique as a first-class training feature.
+
+    num_silos `d` intra-group DC servers run `local_steps` optimizer steps
+    with zero cross-silo communication, then average parameters across the
+    silo mesh axis (the central-FL-server all-reduce). local_steps=1 with
+    num_silos=1 degenerates to standard data-parallel training.
+    """
+
+    num_silos: int = 1
+    local_steps: int = 4              # H — paper: epochs-per-round
+    # fedavg | fedprox | fedsgd, or a robust boundary (DESIGN.md §8):
+    # median | trimmed_mean | krum
+    aggregator: str = "fedavg"
+    fedprox_mu: float = 0.0
+    trim_frac: float = 0.2            # trimmed_mean: trim fraction per tail
+    krum_f: int = 1                   # krum: tolerated Byzantine silos
+    # silo mesh axis is resolved at launch: "pod" (multi-pod) or "data".
+    silo_axis: str = "auto"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    shape: InputShape
+    federated: FederatedConfig = field(default_factory=FederatedConfig)
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    optimizer: str = "adamw"
+    opt_state_dtype: str = "float32"  # bf16 for very large models
+    remat: bool = True
+    seed: int = 0
+    fsdp: bool = True                 # shard params over the data axis too
 
 
 INPUT_SHAPES = {

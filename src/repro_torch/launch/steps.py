@@ -1,20 +1,28 @@
-"""The serving steps: ``make_prefill_step`` and ``make_serve_step`` return
-the prefill and the decode step (counterpart of ``repro.launch.steps``; the
-train and federated steps come with the training slice).
+"""Step functions (counterpart of ``repro.launch.steps``): the
+baseline train step, the prefill step and the serve (decode) step. The
+federated round steps are not ported yet (ROADMAP.md, Queue 1).
 
 ``make_*`` fixes the device (CUDA unless the caller asks for the CPU) and
 the step moves its token inputs there, so a caller can hand over NumPy.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import backbone as bb
+from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+                               global_norm, sgd)
+from repro_torch.optim.schedules import cosine_with_warmup
+from repro_torch.tree import tree_leaves, tree_map
+
+# elements of one piece of the optimizer update: bounds its temporaries
+# (a few piece-sized fp32 tensors) whatever the size of a parameter
+OPT_PIECE = 1 << 26
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
@@ -49,3 +57,74 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                               compute_dtype=compute_dtype)
 
     return serve_step
+
+
+def make_optimizer(tc: TrainConfig):
+    sched = cosine_with_warmup(tc.learning_rate, tc.warmup_steps,
+                               tc.total_steps)
+    if tc.optimizer == "sgd":
+        return sgd(sched, momentum=0.9)
+    return adamw(sched, weight_decay=tc.weight_decay,
+                 state_dtype=getattr(torch, tc.opt_state_dtype))
+
+
+def _pieces(t: torch.Tensor):
+    """Views of `t` along its first dim, each of at most about OPT_PIECE
+    elements (at least one row)."""
+    if t.dim() == 0 or t.numel() <= OPT_PIECE:
+        return [t]
+    return t.split(max(1, OPT_PIECE // (t.numel() // t.shape[0])))
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
+                    use_kernels: bool = True,
+                    device: DeviceLike = None) -> Tuple[Callable, Any]:
+    """Baseline (non-federated) step: loss, gradients over the whole params
+    tree, global-norm clip, one optimizer update. Returns (train_step, opt).
+
+    ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    with metrics ``ce``, ``loss`` and ``grad_norm``. It updates `params`
+    and `opt_state` IN PLACE and returns them (the reference's jitted step
+    donates them): the update runs piece by piece (``OPT_PIECE``), so a
+    full-width step holds one copy of the params, gradients and moments
+    plus a few pieces. Each piece takes the same arithmetic as the
+    whole-tree ``clip_by_global_norm`` -> ``opt.update`` ->
+    ``apply_updates`` of the reference."""
+    dev = resolve_device(device)
+    opt = make_optimizer(tc)
+    compute_dtype = getattr(torch, tc.compute_dtype)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        it = iter(live)
+        tree = tree_map(lambda _: next(it), params)
+        b = {k: _on(batch[k], dev) for k in ("tokens", "labels")}
+        loss, metrics = bb.loss_fn(tree, b, cfg, use_kernels=use_kernels,
+                                   remat=tc.remat,
+                                   compute_dtype=compute_dtype)
+        grads = list(torch.autograd.grad(loss, live, allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        del tree, live
+        with torch.no_grad():
+            gnorm = global_norm(grads)
+            moments = [k for k in opt_state if k != "step"]
+            moment_leaves = [tree_leaves(opt_state[k]) for k in moments]
+            step = opt_state["step"]
+            for j, p in enumerate(leaves):
+                g, grads[j] = grads[j], None
+                for p_, g_, *ms in zip(_pieces(p), _pieces(g),
+                                       *(_pieces(m[j]) for m in moment_leaves)):
+                    g_, _ = clip_by_global_norm(g_, tc.grad_clip, norm=gnorm)
+                    upd, new = opt.update(
+                        g_, {"step": step, **dict(zip(moments, ms))}, p_)
+                    for k, m_ in zip(moments, ms):
+                        m_.copy_(new[k])
+                    p_.copy_(apply_updates(p_, upd))
+            opt_state["step"] = new["step"]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step, opt

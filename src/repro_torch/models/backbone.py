@@ -1,16 +1,24 @@
-"""Backbone LM, the dense family: a uniform [attn + SwiGLU] stack (GQA,
-sliding window, softcap, qk-norm per config), with forward, prefill and
-cached single-token decode (counterpart of ``repro.models.backbone``).
+"""Backbone LM (counterpart of ``repro.models.backbone``), two families:
+
+  dense : a uniform [attn + SwiGLU] stack (GQA, sliding window, softcap,
+          qk-norm per config), with forward, loss, prefill and cached
+          single-token decode;
+  ssm   : rwkv6's [time-mix + channel-mix] stack, with forward and loss
+          (its prefill and decode are not ported yet).
 
 Parameters are stacked on a leading layer axis L, as in the reference, so
 its weights carry over as they are (``repro_torch.weights``); layers run in
 a Python loop, so gemma2's alternating local/global flag is a concrete bool
-per layer. The other families (moe, ssm, hybrid, MLA, modality prefixes)
-are not ported yet and raise NotImplementedError naming ROADMAP.md.
+per layer. With ``remat`` each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
+body): its activations are recomputed in the backward pass. The other
+families (moe, hybrid, MLA, modality prefixes) are not ported yet and
+raise NotImplementedError naming ROADMAP.md.
 
 ``use_kernels`` (the reference's ``use_pallas``) sends the attention of
-forward and prefill through the flash-attention kernel; False runs the
-plain ``sdpa`` path. Decode runs no kernel, as in the reference.
+forward and prefill through the flash-attention kernel, and rwkv6's
+recurrence through the WKV6 kernel; False runs the plain paths (``sdpa``,
+``wkv6_chunked``). Decode runs no kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -27,12 +37,19 @@ from repro_torch.tree import tree_leaves, tree_map
 Params = Dict[str, Any]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla is not None or cfg.prefix_frontend:
+def _check_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
+    """Raise for what the port does not run yet: the moe (its aux loss and
+    MTP head included), hybrid, MLA and modality-prefix families, and, with
+    `serving`, the ssm family's prefill and decode."""
+    families = ("dense",) if serving else ("dense", "ssm")
+    if (cfg.family not in families or cfg.mla is not None
+            or cfg.prefix_frontend):
+        what = ("prefill / decode" if cfg.family == "ssm"
+                else f"family {cfg.family!r}")
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (moe / ssm / hybrid / MLA / "
-            f"modality prefix) is not ported yet; only the dense family is. "
-            f"See ROADMAP.md, Queue 1")
+            f"{cfg.name}: {what} is not ported yet (ported: the dense "
+            f"family, and the ssm family's forward and loss). See "
+            f"ROADMAP.md, Queue 1")
 
 
 # ===========================================================================
@@ -50,6 +67,14 @@ def _init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
         p["ln_post_attn"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
         p["ln_post_mlp"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
     return p
+
+
+def _init_rwkv_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                     lead=()) -> Params:
+    return {"ln_att": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+            "ln_ffn": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+            "tm": L.init_rwkv6(gen, cfg, dtype, device, lead),
+            "cm": L.init_rwkv6_channelmix(gen, cfg, dtype, device, lead)}
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -71,14 +96,23 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
         params["lm_head"] = L._dense_init(generator,
                                           (cfg.d_model, cfg.vocab_size),
                                           cfg.d_model, param_dtype, dev)
-    params["layers"] = _init_dense_block(generator, cfg, param_dtype, dev,
-                                         lead=(cfg.num_layers,))
+    init_block = _init_rwkv_block if cfg.family == "ssm" else _init_dense_block
+    params["layers"] = init_block(generator, cfg, param_dtype, dev,
+                                  lead=(cfg.num_layers,))
     return params
 
 
-def _layer(stacked: Params, i: int) -> Params:
-    """Layer i's params: views into the stacked tensors."""
-    return tree_map(lambda a: a[i], stacked)
+def _layers(stacked: Params) -> List[Params]:
+    """Every layer's params, views made by one ``unbind`` per tensor: its
+    backward stacks the L layer gradients once, where L separate ``a[i]``
+    would each add a zero-padded full-size gradient."""
+    unbound = [a.unbind(0) for a in tree_leaves(stacked)]
+
+    def layer(i):
+        it = iter(u[i] for u in unbound)
+        return tree_map(lambda _: next(it), stacked)
+
+    return [layer(i) for i in range(len(unbound[0]))]
 
 
 # ===========================================================================
@@ -125,17 +159,36 @@ def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x + out
 
 
+def _rwkv_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      use_kernels: bool) -> torch.Tensor:
+    h = L.apply_rmsnorm(lp["ln_att"], x, cfg.norm_eps)
+    x = x + L.rwkv6_timemix(lp["tm"], h, cfg, use_kernels=use_kernels)
+    h = L.apply_rmsnorm(lp["ln_ffn"], x, cfg.norm_eps)
+    h_prev = F.pad(h, (0, 0, 1, 0))[:, :-1]
+    return x + L.rwkv6_channelmix(lp["cm"], h, h_prev)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            use_kernels: bool = True, compute_dtype=torch.bfloat16,
-            return_logits: bool = True):
+            use_kernels: bool = True, remat: bool = True,
+            compute_dtype=torch.bfloat16, return_logits: bool = True):
     """-> (logits (B, T, V) fp32 | None, hidden (B, T, d),
     {"loss_mask": (B, T)})."""
     x, positions, loss_mask = embed_inputs(params, tokens, cfg)
     x = x.to(compute_dtype)
-    for i, flag in enumerate(_local_flags(cfg, cfg.num_layers)):
-        x = _dense_block_apply(_layer(params["layers"], i), x, cfg,
-                               positions=positions, is_local=flag,
-                               use_kernels=use_kernels)
+    if cfg.family == "ssm":
+        body = lambda h, lp, flag: _rwkv_block_apply(
+            lp, h, cfg, use_kernels=use_kernels)
+    else:
+        body = lambda h, lp, flag: _dense_block_apply(
+            lp, h, cfg, positions=positions, is_local=flag,
+            use_kernels=use_kernels)
+    remat = remat and torch.is_grad_enabled()
+    for lp, flag in zip(_layers(params["layers"]),
+                        _local_flags(cfg, cfg.num_layers)):
+        if remat:
+            x = checkpoint(body, x, lp, flag, use_reentrant=False)
+        else:
+            x = body(x, lp, flag)
     hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     logits = _lm_logits(params, hidden, cfg) if return_logits else None
     return logits, hidden, {"loss_mask": loss_mask}
@@ -148,6 +201,64 @@ def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig):
         logits = (torch.tanh(logits / cfg.final_logit_softcap)
                   * cfg.final_logit_softcap)
     return logits
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+
+def _xent_sums(logits: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor):
+    """(sum of masked next-token NLL, sum of the mask). logits fp32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over masked positions. logits fp32."""
+    tot, cnt = _xent_sums(logits, labels, mask)
+    # mask is a {0,1} token count: the 1.0 clamp only turns an all-masked
+    # batch into 0/1 = 0 instead of 0/0
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+XENT_CHUNK = 512            # sequence-block size for the chunked CE head
+
+
+def chunked_xent(params: Params, hidden: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, cfg: ModelConfig,
+                 chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """CE over the vocab head computed in sequence blocks when S is a
+    multiple of `chunk` above it, as the reference does: each block's
+    (B, chunk, V) logits are made, reduced and (under autograd) kept for
+    the backward pass one block at a time."""
+    S = hidden.shape[1]
+    if S % chunk or S <= chunk:
+        return softmax_xent(_lm_logits(params, hidden, cfg), labels, mask)
+    tot = cnt = 0.0
+    for i in range(0, S, chunk):
+        t, c = _xent_sums(_lm_logits(params, hidden[:, i:i + chunk], cfg),
+                          labels[:, i:i + chunk], mask[:, i:i + chunk])
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            *, use_kernels: bool = True, remat: bool = True,
+            compute_dtype=torch.bfloat16):
+    """batch: tokens (B,S), labels (B,S) (next token, -1 = ignore) ->
+    (loss, {"ce", "loss"}). The reference's moe aux term and MTP head
+    belong to the moe family, which raises (``_check_ported``)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    _, hidden, aux = forward(params, tokens, cfg, use_kernels=use_kernels,
+                             remat=remat, compute_dtype=compute_dtype,
+                             return_logits=False)
+    mask = (labels >= 0) & aux["loss_mask"]
+    loss = chunked_xent(params, hidden, torch.clamp(labels, min=0),
+                        mask.float(), cfg)
+    return loss, {"ce": loss, "loss": loss}
 
 
 # ===========================================================================
@@ -182,6 +293,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
     """Process a full prompt, returning (last-position logits (B, 1, V),
     decode state matching init_decode_state, next position (B,))."""
+    _check_ported(cfg, serving=True)
     x, positions, _ = embed_inputs(params, tokens, cfg)
     x = x.to(compute_dtype)
     B, T = positions.shape
@@ -189,10 +301,11 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = L.init_kv_cache(cfg, B, cache_len, cfg.num_layers, cache_dtype,
                             x.device)
     _entries_to_cache(cache, pos1d)
-    for i, flag in enumerate(_local_flags(cfg, cfg.num_layers)):
-        x, kv = _dense_block_apply(_layer(params["layers"], i), x, cfg,
-                                   positions=positions, is_local=flag,
-                                   use_kernels=use_kernels, return_kv=True)
+    for i, (lp, flag) in enumerate(zip(_layers(params["layers"]),
+                                       _local_flags(cfg, cfg.num_layers))):
+        x, kv = _dense_block_apply(lp, x, cfg, positions=positions,
+                                   is_local=flag, use_kernels=use_kernels,
+                                   return_kv=True)
         _fill_cache(cache, i, kv, pos1d)
     hidden = L.apply_rmsnorm(params["ln_final"], x[:, -1:], cfg.norm_eps)
     logits = _lm_logits(params, hidden, cfg)
@@ -209,7 +322,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       device: DeviceLike = None) -> Params:
     """Cache tree for serve_step. cache_len should be min(seq_len, window)
     for pure sliding-window configs."""
-    _check_ported(cfg)
+    _check_ported(cfg, serving=True)
     return {"cache": L.init_kv_cache(cfg, batch, cache_len, cfg.num_layers,
                                      dtype, resolve_device(device))}
 
@@ -221,7 +334,7 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     Returns (logits (B, 1, V) fp32, state). The caches are updated in
     place, so the returned state is `state` itself (the reference returns
     an updated copy)."""
-    _check_ported(cfg)
+    _check_ported(cfg, serving=True)
     x = params["embed"][tokens[:, 0].long()][:, None]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
@@ -235,8 +348,8 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
 def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
                        cur_pos: torch.Tensor, cfg: ModelConfig, *, n: int):
     """Run the n layers on one token, writing each layer's cache in place."""
-    for i, flag in enumerate(_local_flags(cfg, n)):
-        lp = _layer(stacked, i)
+    for i, (lp, flag) in enumerate(zip(_layers(stacked),
+                                       _local_flags(cfg, n))):
         hn = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
         attn = L.decode_attention(
             lp["attn"], hn, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],

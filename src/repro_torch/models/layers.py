@@ -1,6 +1,7 @@
-"""Layer library, the dense-family subset: RMSNorm, RoPE, attention (GQA /
-sliding window / softcap / qk-norm) for prefill and for cached decode, and
-the SwiGLU MLP (counterpart of ``repro.models.layers``).
+"""Layer library, the subset ported so far: RMSNorm, RoPE, attention (GQA /
+sliding window / softcap / qk-norm) for prefill and for cached decode, the
+SwiGLU MLP, and RWKV6's time mix and channel mix with the chunk-level
+linear recurrence they need (counterpart of ``repro.models.layers``).
 
 Functional style, as the reference: ``init_*`` builds a dict of tensors,
 ``apply_*`` consumes it, in the reference's layouts (``wq`` (d, H, hd),
@@ -24,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+from repro_torch.kernels.rwkv6 import ref as rwkv_ref
 
 Params = Dict[str, Any]
 Shape = Tuple[int, ...]
@@ -302,3 +305,158 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RWKV6 (Finch): time-mix with data-dependent decay + channel mix
+# --------------------------------------------------------------------------
+
+def _draw(shape: Shape, device, fill) -> torch.Tensor:
+    """An fp32 tensor filled in place by `fill` (a draw from a generator);
+    a `meta` tensor is only shaped."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        fill(t)
+    return t
+
+
+def init_rwkv6(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+               lead: Shape = ()) -> Params:
+    d = cfg.d_model
+    H, hd = cfg.num_heads, cfg.ssm.head_dim
+    inner = H * hd
+    lora = max(32, d // 16)
+    uniform = lambda t: t.uniform_(0.0, 1.0, generator=gen)
+    normal = lambda t: t.normal_(0.0, 1.0, generator=gen)
+    return {
+        # data-dependent token-shift lerp (5 targets: r,k,v,w,g)
+        "mix_base": (_draw(lead + (5, d), device, uniform) * 0.5).to(dtype),
+        "mix_lora_a": _dense_init(gen, lead + (d, 5, lora // 2), d, dtype,
+                                  device),
+        "mix_lora_b": _dense_init(gen, lead + (5, lora // 2, d), lora, dtype,
+                                  device),
+        "w_r": _dense_init(gen, lead + (d, H, hd), d, dtype, device),
+        "w_k": _dense_init(gen, lead + (d, H, hd), d, dtype, device),
+        "w_v": _dense_init(gen, lead + (d, H, hd), d, dtype, device),
+        "w_g": _dense_init(gen, lead + (d, inner), d, dtype, device),
+        "w_o": _dense_init(gen, lead + (H, hd, d), inner, dtype, device),
+        # decay: w_t = exp(-exp(decay_base + lora(x))); fp32 whatever dtype
+        "decay_base": _draw(lead + (H, hd), device, normal) * 0.3 - 1.0,
+        "decay_lora_a": _dense_init(gen, lead + (d, lora), d, dtype, device),
+        "decay_lora_b": _dense_init(gen, lead + (lora, H, hd), lora, dtype,
+                                    device),
+        "bonus": _draw(lead + (H, hd), device, normal) * 0.3,
+        "ln_out": init_rmsnorm(inner, dtype, device, lead),
+    }
+
+
+def _rwkv6_rkvwg(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
+                 cfg: ModelConfig):
+    """Token-shift data-dependent mixing -> (r, k, v, log_w (fp32), g)."""
+    dt = x.dtype
+    # ddlerp: mix_i = x + (shifted - x) * (base_i + lora_i(x))
+    lora_in = torch.einsum("...d,dml->...ml", x, p["mix_lora_a"].to(dt))
+    lora = torch.einsum("...ml,mld->...md", torch.tanh(lora_in),
+                        p["mix_lora_b"].to(dt))
+    mixes = x[..., None, :] + (x_prev - x)[..., None, :] * (
+        p["mix_base"].to(dt) + lora)                             # (..., 5, d)
+    xr, xk, xv, xw, xg = mixes.unbind(-2)
+    r = _heads_in(xr, p["w_r"])
+    k = _heads_in(xk, p["w_k"])
+    v = _heads_in(xv, p["w_v"])
+    dl = xw @ p["decay_lora_a"].to(dt)
+    dw = torch.einsum("...l,lhk->...hk", torch.tanh(dl),
+                      p["decay_lora_b"].to(dt))
+    # Clip so per-step log-decay >= -e^1.6 ~= -4.95: keeps the chunked
+    # factored form (k * exp(-cumdecay)) inside fp32 range for chunk<=16
+    # (see kernels/rwkv6/ref.py stability note).
+    log_w = -torch.exp(torch.clamp(p["decay_base"] + dw.float(), -8.0, 1.6))
+    g = F.silu(xg @ p["w_g"].to(dt))
+    return r, k, v, log_w, g
+
+
+def rwkv6_timemix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  use_kernels: bool = True, return_state: bool = False):
+    """Full-sequence RWKV6 time mix. x: (B, S, d). With return_state, also
+    returns the final recurrent wkv state (B, H, K, V) for prefill.
+
+    use_kernels=True runs the recurrence through ``rwkv_ops.wkv6`` (the CUDA
+    kernel on a card, the chunked plain form on the CPU), as the reference's
+    ``use_pallas`` does; asking for the state takes the chunked plain form,
+    as in the reference (the kernel returns no state)."""
+    B, S, d = x.shape
+    H, hd = cfg.num_heads, cfg.ssm.head_dim
+    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    r, k, v, log_w, g = _rwkv6_rkvwg(p, x, x_prev, cfg)
+    if use_kernels and not return_state:
+        o = rwkv_ops.wkv6(r, k, v, log_w, p["bonus"], chunk=cfg.ssm.chunk)
+        state = None
+    else:
+        res = rwkv_ref.wkv6_chunked(r, k, v, log_w, p["bonus"],
+                                    chunk=cfg.ssm.chunk,
+                                    return_state=return_state,
+                                    shard=cfg.ssm.shard)
+        o, state = res if return_state else (res, None)
+    o = o.reshape(B, S, H * hd).to(x.dtype)
+    o = apply_rmsnorm(p["ln_out"], o, cfg.norm_eps) * g
+    out = _heads_out(o.reshape(B, S, H, hd), p["w_o"])
+    if return_state:
+        return out, state
+    return out
+
+
+def init_rwkv6_channelmix(gen: torch.Generator, cfg: ModelConfig, dtype,
+                          device, lead: Shape = ()) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mix_k": (_draw(lead + (d,), device,
+                        lambda t: t.uniform_(0.0, 1.0, generator=gen))
+                  * 0.5).to(dtype),
+        "w_k": _dense_init(gen, lead + (d, f), d, dtype, device),
+        "w_v": _dense_init(gen, lead + (f, d), f, dtype, device),
+        "w_r": _dense_init(gen, lead + (d, d), d, dtype, device),
+    }
+
+
+def rwkv6_channelmix(p: Params, x: torch.Tensor, x_prev: torch.Tensor
+                     ) -> torch.Tensor:
+    dt = x.dtype
+    xk = x + (x_prev - x) * p["mix_k"].to(dt)
+    k = torch.square(F.relu(xk @ p["w_k"].to(dt)))
+    kv = k @ p["w_v"].to(dt)
+    r = torch.sigmoid(xk @ p["w_r"].to(dt))
+    return r * kv
+
+
+# --------------------------------------------------------------------------
+# the chunk-level linear recurrence s_i = a_i ⊙ s_{i-1} + b_i
+# --------------------------------------------------------------------------
+
+def linear_recurrence_pscan(a: torch.Tensor, b: torch.Tensor,
+                            extra_dims: int = 1) -> torch.Tensor:
+    """Inclusive prefix states of s_i = a_i ⊙ s_{i-1} + b_i along axis 1.
+
+    a: (G, n, K) in (0, 1]; b: (G, n, K, *extra). Returns inclusive states
+    like b. The reference runs a log-depth associative scan, which torch
+    lacks; this is its closed form, s_i = Σ_{j<=i} exp(C_i - C_j) b_j with
+    C = cumsum(log a), one batched product. Every exponent is <= 0, so no
+    term overflows; C is summed in float64, so the differences C_i - C_j
+    keep fp32 precision however long the sequence. Its memory is
+    O(G·n²·K): fine at the chunk counts of training (n = S / 16).
+    """
+    G, n, K = a.shape
+    C = torch.cumsum(torch.log(a).double(), dim=1)               # (G, n, K)
+    expo = (C[:, :, None, :] - C[:, None, :, :]).to(a.dtype)     # (G,i,j,K)
+    causal = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                   device=a.device))[None, :, :, None]
+    weight = torch.exp(torch.where(causal, expo, -torch.inf))
+    bf = b.reshape(G, n, K, -1)
+    incl = torch.einsum("gijk,gjkx->gikx", weight, bf)
+    return incl.reshape(b.shape)
+
+
+def _prev_states(a: torch.Tensor, b: torch.Tensor, extra_dims: int = 1):
+    """(exclusive-prefix states, final state) for the recurrence above."""
+    incl = linear_recurrence_pscan(a, b, extra_dims)
+    prev = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    return prev, incl[:, -1]

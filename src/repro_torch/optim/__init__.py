@@ -3,6 +3,7 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     adamw,
     apply_updates,
     clip_by_global_norm,
+    global_norm,
     sgd,
 )
 from repro_torch.optim.schedules import constant, cosine_with_warmup  # noqa: F401

@@ -30,9 +30,17 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """Scale `grads` so their global norm is at most `max_norm`. `norm`,
+    when given, is the global norm of a whole tree that `grads` is a piece
+    of, so a large tree can be clipped piece by piece."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 

@@ -135,6 +135,26 @@ def test_dispatch_and_validation():
                                        v.transpose(1, 2))
 
 
+def test_kernel_route_refuses_autograd(monkeypatch):
+    """The kernel has no backward: on the kernel route, a call that autograd
+    records through q, k or v raises instead of returning an output with no
+    gradient. Meta tensors take the kernel route here (they are not CPU
+    tensors), with the launch patched out."""
+    calls = []
+    monkeypatch.setattr(tops, "flash_attention_cuda",
+                        lambda q, *a, **kw: calls.append(1) or q)
+    q, k, v = (torch.tensor(a).to("meta") for a in _qkv(8, 1, 8, 8, 2, 2, 64))
+    with pytest.raises(RuntimeError, match="no backward.*ROADMAP"):
+        tops.flash_attention(q.requires_grad_(), k, v)
+    assert calls == []
+    with torch.no_grad():
+        tops.flash_attention(q, k, v)
+    tops.flash_attention(q.detach(), k, v)
+    assert calls == [1, 1]
+    with pytest.raises(RuntimeError, match="no backward"):
+        tops.flash_attention(q.detach(), k, v.requires_grad_())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -30,7 +30,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.models.layers", "repro_torch.models.backbone",
             "repro_torch.configs.gemma2_2b", "repro_torch.launch.steps",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.data.tokens", "repro_torch.kernels.rwkv6.kernel",
+            "repro_torch.kernels.rwkv6.ops",
+            "repro_torch.kernels.rwkv6.ref"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -86,18 +89,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_llm_entry_points_default_to_cuda(monkeypatch):
-    from repro_torch.configs import REDUCED
-    from repro_torch.launch import serve, steps
+    from repro_torch.configs import REDUCED, InputShape, TrainConfig
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import backbone as bb
     cfg = REDUCED["llama3.2-1b"]
+    tc = TrainConfig(model=REDUCED["rwkv6-3b"],
+                     shape=InputShape("t", 8, 1, "train"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gen = torch.Generator().manual_seed(0)
     for call in (lambda: bb.init_params(cfg, gen),
                  lambda: bb.init_decode_state(cfg, 1, 8),
                  lambda: steps.make_prefill_step(cfg, cache_len=8),
                  lambda: steps.make_serve_step(cfg),
+                 lambda: steps.make_train_step(tc.model, tc),
                  lambda: serve.BatchedServer(cfg, None),
-                 lambda: serve.main([])):
+                 lambda: serve.main([]),
+                 lambda: train.train("rwkv6-3b", steps=1),
+                 lambda: train.main(["--arch", "rwkv6-3b", "--reduced"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     params = bb.init_params(cfg, gen, device="cpu")
@@ -107,6 +115,12 @@ def test_llm_entry_points_default_to_cuda(monkeypatch):
     assert logits.shape == (1, 1, cfg.vocab_size)
     assert state["cache"]["k"].device.type == "cpu" and int(nxt[0]) == 5
     assert serve.BatchedServer(cfg, params, device="cpu").device.type == "cpu"
+    step, opt = steps.make_train_step(tc.model, tc, device="cpu")
+    p = bb.init_params(tc.model, gen, device="cpu")
+    p, _, metrics = step(p, opt.init(p), {"tokens": np.zeros((1, 8), np.int32),
+                                          "labels": np.ones((1, 8), np.int32)})
+    assert p["embed"].device.type == "cpu"
+    assert np.isfinite(float(metrics["loss"]))
 
 
 def test_cpu_fit_predict_score_end_to_end():
