@@ -13,9 +13,10 @@ paths through the port's public entry points:
   epochs, batch 32): the Gram kernel's path;
 - the LLM serving path at full width and depth with random weights from a
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
-  BatchedServer, and gemma2-2b prefill (fp32, 8192 tokens, past its
-  4096-token window): the flash-attention kernel's path, held against the
-  plain attention path of the same model;
+  BatchedServer, and gemma2-2b prefill (bf16 and fp32, 8192 tokens, past
+  its 4096-token window): the flash-attention kernels' path (bf16: the
+  wgmma/TMA kernel; fp32: the SIMT kernel), held against the plain
+  attention path of the same model;
 - the rwkv6-3b training path at full width and depth with random weights
   from a seed, under TrainConfig's defaults (params fp32, compute bf16,
   AdamW fp32, remat on): TokenStream batches of 2 x 1024 tokens through
@@ -31,6 +32,7 @@ fails and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -39,6 +41,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# flex_attention, the softcap rows' yardstick, is compiled by Inductor and
+# Triton: their caches go beside the kernels' build, and the compile runs in
+# this process (no worker pool left behind)
+_CACHE = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compile_cache"
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(_CACHE / "inductor"))
+os.environ.setdefault("TRITON_CACHE_DIR", str(_CACHE / "triton"))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -94,6 +103,8 @@ FLASH_SHAPES = [
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py:31
 LM_TOL = 1e-4            # kernel path vs plain path logits, relative, fp32
+BF16_GAP = 2.0           # bf16 kernel path's gap to the fp32 plain path, as
+                         # a multiple of the bf16 plain path's own gap
 PREFILL_B, PREFILL_S, PREFILL_CACHE = 4, 2048, 4096
 DECODE_STEPS = 32
 GEMMA_S = 8192           # > the 4096-token window: local layers mask
@@ -192,12 +203,14 @@ def phase_device():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = [gram_kernel.SOURCE, fa_kernel.SOURCE, wkv_kernel.SOURCE]
+    sources = [gram_kernel.SOURCE, fa_kernel.SOURCE, fa_kernel.WGMMA_SOURCE,
+               wkv_kernel.SOURCE]
     build.load_libraries(sources)
     build_s = time.perf_counter() - t0
     ptxas = {src.name: [l.strip() for l in
                         build.build_log.get(src.name, "").splitlines()
-                        if "registers" in l or "spill" in l or "Compiling" in l]
+                        if "registers" in l or "spill" in l or "Compiling" in l
+                        or "Performance Loss" in l]
              for src in sources}
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
@@ -377,22 +390,41 @@ def visible_pairs(Sq, Sk, causal, window, q_offset) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
-def sdpa_call(q, k, v, Sq, Sk, window, softcap, q_offset):
-    """One library call computing the same function, or None (SDPA has no
-    softcap). Model layout in, (B, H, S, hd) views to SDPA."""
-    if softcap:
-        return None
+def library_call(q, k, v, Sq, Sk, window, softcap, q_offset):
+    """One PyTorch call computing the same function on the same inputs, as
+    (name, fn): SDPA, or, with a softcap (which SDPA lacks), flex_attention
+    compiled with the tanh softcap as its score_mod and the causal / window
+    mask as its block mask (built once, outside the call). Model layout in,
+    (B, H, S, hd) views to the library."""
     F = torch.nn.functional
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if softcap:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def visible(b, h, q_idx, kv_idx):
+            qpos = q_idx + q_offset
+            keep = kv_idx <= qpos
+            if window:
+                keep = keep & (kv_idx > qpos - window)
+            return keep
+
+        def capped(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+
+        mask = create_block_mask(visible, None, None, Sq, Sk, device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        return "flex_attention", lambda: flex(
+            qh, kh, vh, score_mod=capped, block_mask=mask, enable_gqa=True)
     if window == 0 and q_offset == 0 and Sq == Sk:
-        return lambda: F.scaled_dot_product_attention(
+        return "sdpa", lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True)
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    return lambda: F.scaled_dot_product_attention(
+    return "sdpa", lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
 
@@ -406,14 +438,28 @@ def phase_flash_check(dev, peak):
             v = torch.randn((B, Sk, KV, hd), generator=gen, device=dev).to(dtype)
             kw = dict(causal=True, window=window, softcap=softcap,
                       q_offset=q_offset)
+            before = dict(fa_kernel.route_launches)
             out = fa_ops.flash_attention(q, k, v, **kw)
+            ran = [r for r, n in fa_kernel.route_launches.items()
+                   if n != before[r]]
+            check(len(ran) == 1 and fa_kernel.route_launches[ran[0]]
+                  == before[ran[0]] + 1,
+                  f"flash call at {name} {dtype}: launches by route "
+                  f"{before} -> {fa_kernel.route_launches}")
             ref = fa_ops.flash_attention(q, k, v, backend="ref", **kw)
+            lib_name, lib = library_call(q, k, v, Sq, Sk, window, softcap,
+                                         q_offset)
+            lib_out = lib()
             torch.cuda.synchronize()
             tol = FLASH_TOL[dtype]
-            diff = (out.float() - ref.float()).abs()
-            max_abs = float(diff.max())
-            excess = float((diff / (tol + tol * ref.float().abs())).max())
-            del out, ref, diff
+
+            def err(x):
+                diff = (x.float() - ref.float()).abs()
+                return (float(diff.max()),
+                        float((diff / (tol + tol * ref.float().abs())).max()))
+            (max_abs, excess), (lib_abs, lib_excess) = err(out), err(
+                lib_out.transpose(1, 2))
+            del out, ref, lib_out
             pairs = visible_pairs(Sq, Sk, True, window, q_offset)
             flops = 4.0 * hd * B * H * pairs
             nbytes = float(q.element_size() * (2 * q.numel() + 2 * k.numel()))
@@ -424,21 +470,25 @@ def phase_flash_check(dev, peak):
             ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps)
             plain_ms = time_ms(lambda: fa_ops.flash_attention(
                 q, k, v, backend="ref", **kw), reps)
-            lib = sdpa_call(q, k, v, Sq, Sk, window, softcap, q_offset)
-            library_ms = time_ms(lib, reps) if lib is not None else None
-            row = {"phase": "flash_check", "shape": name,
+            library_ms = time_ms(lib, reps)
+            row = {"phase": "flash_check", "shape": name, "route": ran[0],
                    "B_H_KV_Sq_Sk_hd": [B, H, KV, Sq, Sk, hd],
                    "window": window, "softcap": softcap,
                    "q_offset": q_offset, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": max_abs, "tol": tol,
                    "err_over_bar": excess, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                   "library": lib_name, "library_ms": library_ms,
+                   "library_max_abs_err": lib_abs,
+                   "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "visible_pairs": pairs, "tflops_per_s": flops / ms / 1e9}
             emit(row)
             rows.append(row)
             check(excess <= 1.0, f"flash kernel vs plain at {name} {dtype}: "
                                  f"max abs {max_abs} over the {tol} bar")
+            # the yardstick must compute the same function to be one
+            check(lib_excess <= 1.0, f"{lib_name} vs plain at {name} {dtype}: "
+                                     f"max abs {lib_abs} over the {tol} bar")
             del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -465,6 +515,36 @@ def random_tokens(seed, shape, vocab, dev):
                            device=dev)
 
 
+def bf16_gaps(cfg, p16, prompt, ref_logits, cache_len, dev):
+    """The bf16 prefill's last-token logits on `prompt`, kernel path (the
+    wgmma kernel, counted) and plain path, each against `ref_logits` (the
+    fp32 plain path's): relative gaps, launches and times."""
+    kw = dict(cache_len=cache_len, device=dev)
+    with_k = make_prefill_step(cfg, **kw)
+    plain = make_prefill_step(cfg, use_kernels=False, **kw)
+    fa_kernel.reset_launches()
+    lk, _, _ = with_k(p16, prompt)
+    torch.cuda.synchronize()
+    launches = dict(fa_kernel.route_launches)
+    lp, _, _ = plain(p16, prompt)
+    return {"kernel_path_rel": rel(lk.float().cpu(), ref_logits.cpu()),
+            "plain_path_rel": rel(lp.float().cpu(), ref_logits.cpu()),
+            "launches": launches,
+            "kernel_path_s": wall_s(lambda: with_k(p16, prompt), reps=1),
+            "plain_path_s": wall_s(lambda: plain(p16, prompt), reps=1),
+            "logits_finite": bool(torch.isfinite(lk).all())}
+
+
+def check_bf16_gap(gap, name):
+    check(gap["logits_finite"], f"{name} bf16 kernel-path logits")
+    check(gap["launches"][fa_kernel.F32_ROUTE] == 0
+          and gap["launches"][fa_kernel.BF16_ROUTE] > 0,
+          f"{name} bf16 prefill launches by route: {gap['launches']}")
+    check(gap["kernel_path_rel"] <= BF16_GAP * gap["plain_path_rel"],
+          f"{name} bf16 kernel path vs fp32 plain: {gap['kernel_path_rel']} "
+          f"> {BF16_GAP} x the bf16 plain path's {gap['plain_path_rel']}")
+
+
 def phase_llm_prefill(dev):
     cfg = LLAMA
     t0 = time.perf_counter()
@@ -478,17 +558,17 @@ def phase_llm_prefill(dev):
     fa_kernel.reset_launches()
     logits, state, nxt = step(p16, {"tokens": tokens})
     torch.cuda.synchronize()
-    launches = fa_kernel.launches
-    check(launches == cfg.num_layers,
-          f"flash launches in one llama prefill: {launches} "
-          f"(expected {cfg.num_layers})")
+    launches = fa_kernel.route_launches[fa_kernel.BF16_ROUTE]
+    check(launches == cfg.num_layers and fa_kernel.launches() == launches,
+          f"bf16 wgmma flash launches in one llama prefill: {launches} of "
+          f"{fa_kernel.launches()} (expected {cfg.num_layers})")
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "bf16 prefill logits")
     prefill_s = wall_s(lambda: step(p16, {"tokens": tokens}))
     _, per_kernel, _ = profile_device(lambda: step(p16, {"tokens": tokens}))
     dev_s = sum(per_kernel.values())
     share = sum(t for k, t in per_kernel.items()
-                if "flash_fwd_kernel" in k) / dev_s
+                if "flash_fwd_kernel_wgmma" in k) / dev_s
 
     # fp32: the kernel path against the plain path of the same model, and
     # prefill(prompt + t) against prefill(prompt) then one decode of t
@@ -508,6 +588,9 @@ def phase_llm_prefill(dev):
     fp32_kernel_s = wall_s(lambda: with_k(p32, prompt), reps=1)
     fp32_plain_s = wall_s(lambda: plain(p32, prompt), reps=1)
     del s32
+    # bf16 on the same prompt: the kernel path's gap to the fp32 plain path
+    # against the bf16 plain path's own gap to it
+    bf16_gap = bf16_gaps(cfg, p16, prompt, lp, PREFILL_CACHE, dev)
     row = {"phase": "llm_prefill", "arch": cfg.name,
            "params": cfg.param_count(), "init_s": init_s,
            "bf16": {"batch": PREFILL_B, "seq": PREFILL_S,
@@ -515,7 +598,7 @@ def phase_llm_prefill(dev):
                     "prefill_s": prefill_s,
                     "prefill_tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
                     "flash_share_of_device_time": share,
-                    "profiled_device_s": dev_s},
+                    "profiled_device_s": dev_s, "b1_vs_fp32_plain": bf16_gap},
            "fp32_b1": {"kernel_vs_plain_logits_rel": kernel_vs_plain,
                        "prefill_plus_t_vs_decode_rel": prefill_vs_decode,
                        "kernel_path_s": fp32_kernel_s,
@@ -525,6 +608,7 @@ def phase_llm_prefill(dev):
           f"llama fp32 kernel vs plain logits: {kernel_vs_plain}")
     check(prefill_vs_decode <= LM_TOL,
           f"llama prefill(P+t) vs prefill(P)+decode(t): {prefill_vs_decode}")
+    check_bf16_gap(bf16_gap, cfg.name)
     return p32, p16, logits, state, nxt, row
 
 
@@ -549,7 +633,7 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     check(bool(torch.isfinite(out).all()), "decode logits")
-    check(fa_kernel.launches == 0, "decode runs no flash kernel")
+    check(fa_kernel.launches() == 0, "decode runs no flash kernel")
     prof_wall, per_kernel, kernels = profile_device(decode_run)
     busy_s = sum(per_kernel.values())
 
@@ -601,24 +685,40 @@ def phase_gemma2_prefill(dev):
     fa_kernel.reset_launches()
     lk, _, _ = with_k(params, tokens)
     torch.cuda.synchronize()
-    launches = fa_kernel.launches
+    launches = fa_kernel.route_launches[fa_kernel.F32_ROUTE]
+    all_launches = fa_kernel.launches()
     lp, _, _ = plain(params, tokens)
     err = rel(lk.cpu(), lp.cpu())
     kernel_s = wall_s(lambda: with_k(params, tokens), reps=1)
     plain_s = wall_s(lambda: plain(params, tokens), reps=1)
+    finite = bool(torch.isfinite(lk).all())
+    del lk
+    # bf16, 26 launches of the wgmma kernel at hd 256, held as llama's is
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    torch.cuda.empty_cache()
+    bf16 = bf16_gaps(cfg, p16, tokens, lp, GEMMA_S, dev)
+    bf16["prefill_tokens_per_s"] = GEMMA_S / bf16["kernel_path_s"]
     row = {"phase": "gemma2_prefill", "arch": cfg.name,
            "params": cfg.param_count(), "batch": 1, "seq": GEMMA_S,
            "window": cfg.sliding_window, "dtype": "float32",
-           "flash_launches": launches, "kernel_vs_plain_logits_rel": err,
+           "flash_launches": launches, "all_launches": all_launches,
+           "kernel_vs_plain_logits_rel": err,
            "kernel_path_s": kernel_s, "plain_path_s": plain_s,
            "prefill_tokens_per_s": GEMMA_S / kernel_s,
-           "logits_finite": bool(torch.isfinite(lk).all())}
+           "logits_finite": finite, "bf16": bf16}
     emit(row)
-    check(launches == cfg.num_layers,
-          f"flash launches in one gemma2 prefill: {launches} "
-          f"(expected {cfg.num_layers})")
+    check(launches == cfg.num_layers and row["all_launches"] == launches,
+          f"fp32 SIMT flash launches in one gemma2 prefill: {launches} of "
+          f"{row['all_launches']} (expected {cfg.num_layers})")
     check(row["logits_finite"], "gemma2 logits")
     check(err <= LM_TOL, f"gemma2 fp32 kernel vs plain logits: {err}")
+    check(bf16["launches"][fa_kernel.BF16_ROUTE] == cfg.num_layers,
+          f"bf16 wgmma flash launches in one gemma2 prefill: "
+          f"{bf16['launches']} (expected {cfg.num_layers})")
+    check_bf16_gap(bf16, cfg.name)
+    del p16
+    torch.cuda.empty_cache()
     return row
 
 
@@ -697,6 +797,15 @@ def phase_wkv6_check(dev, peak):
     recompute_ms = time_ms(lambda: torch.autograd.grad(
         wkv_ops.ref.wkv6_chunked(*gb), gb, cot), 10)
     rows[0]["backward_recompute_ms"] = recompute_ms
+    # the gradient's bound: r, k, v, log_w, dO and u read once, dr, dk, dv,
+    # dw and du written once; 12 K V flops per (token, head): the state
+    # recomputed (2 K V), dS carried back (2), and dr, dk, dv, dw (2 each)
+    pairs = B * S * H
+    bwd_flops = 12.0 * K * V * pairs
+    bwd_bytes = 4.0 * ((3 * K + 2 * V) * pairs + (3 * K + V) * pairs
+                       + 2 * H * K)
+    bwd_ops_ms = bwd_flops / peak["fp32_flops"] * 1e3
+    bwd_bytes_ms = bwd_bytes / peak["bytes"] * 1e3
     del args, ga, gb, cot
     # ... and of a full-width rwkv6-3b at reduced depth, fp32, kernel path
     # against plain path
@@ -710,7 +819,12 @@ def phase_wkv6_check(dev, peak):
     model_grad_rel = leaf_rel_max(gk, gp)
     row = {"phase": "wkv6_grad_check", "op_shape": list(WKV_SHAPES[0][1:]),
            "op_grad_rel_max": op_grad_rel,
-           "backward_recompute_ms": recompute_ms, "model_layers": GRAD_LAYERS,
+           "backward_recompute_ms": recompute_ms,
+           "backward_flops": bwd_flops, "backward_bytes": bwd_bytes,
+           "backward_bound_ms": max(bwd_ops_ms, bwd_bytes_ms),
+           "backward_bound_by": ("operations" if bwd_ops_ms >= bwd_bytes_ms
+                                 else "bytes"),
+           "model_layers": GRAD_LAYERS,
            "model_tokens": TRAIN_S, "model_loss_rel": rel(lk, lp),
            "model_grad_rel_max": model_grad_rel}
     emit(row)
@@ -851,7 +965,7 @@ def main() -> int:
     phase_llm_decode(dev, p32, p16, logits, state, nxt)
     del p32, p16, logits, state, nxt
     torch.cuda.empty_cache()
-    phase_gemma2_prefill(dev)
+    gemma_row = phase_gemma2_prefill(dev)
     torch.cuda.empty_cache()
     wkv_rows = phase_wkv6_check(dev, peak)
     train_row = phase_rwkv6_train(dev, wkv_rows[0])
@@ -860,10 +974,17 @@ def main() -> int:
     def per_fit(key):
         return sum(n * r[key] for n, r in zip(MAIN_COUNTS, main_rows))
 
-    # the flash kernel's main path: llama3.2-1b's bf16 prefill, one launch
-    # per layer at the first FLASH_SHAPES row
-    fa_main = flash_rows[0]
+    # the bf16 flash kernel's main path: llama3.2-1b's bf16 prefill, one
+    # launch per layer at the first FLASH_SHAPES row; the fp32 one's: the
+    # gemma2-2b fp32 prefill, half its layers local and half global
+    flash = {(r["shape"], r["dtype"]): r for r in flash_rows}
+    fa_main = flash[(FLASH_SHAPES[0][0], "bfloat16")]
     n_fa = prefill_row["bf16"]["flash_launches"]
+    f32_main = [flash[(FLASH_SHAPES[i][0], "float32")] for i in (1, 2)]
+    n_f32 = gemma_row["flash_launches"]
+
+    def per_gemma(key):
+        return sum(n_f32 // 2 * r[key] for r in f32_main)
     # the WKV6 kernel's main path: the rwkv6-3b train run, every launch at
     # the first WKV_SHAPES row (no PyTorch call computes WKV6: no library)
     wkv_main = wkv_rows[0]
@@ -879,15 +1000,27 @@ def main() -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in main_rows) else "bytes",
         "library_ms": per_fit("library_ms")}, {
-        "name": "flash_attention_fwd", "route": "cuda",
+        "name": "flash_attention_fwd_bf16_wgmma", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
         "launches": n_fa, "max_abs_err": fa_main["max_abs_err"],
         "ms": n_fa * fa_main["ms"], "plain_ms": n_fa * fa_main["plain_ms"],
         "bound_ms": n_fa * fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": n_fa * fa_main["library_ms"]}, {
+        "name": "flash_attention_fwd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
+        "launches": n_f32,
+        "max_abs_err": max(r["max_abs_err"] for r in f32_main),
+        "ms": per_gemma("ms"), "plain_ms": per_gemma("plain_ms"),
+        "bound_ms": per_gemma("bound_ms"),
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in f32_main) else "bytes",
+        # flex_attention: SDPA has no softcap
+        "library_ms": per_gemma("library_ms")}, {
         "name": "wkv6_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:70",

@@ -1,8 +1,11 @@
-// Forward flash attention (online softmax) for Hopper (sm_90a), fp32 or bf16
-// in, fp32 statistics and accumulator, output in the input's type.
+// Forward flash attention (online softmax) for Hopper (sm_90a), fp32 in and
+// out, fp32 statistics and accumulator.
 //
-// Replaces: src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas,
-// the TPU kernel that the LLM tier's prefill and forward run per layer.
+// Replaces, for fp32 inputs: src/repro/kernels/flash_attention/kernel.py::
+// flash_attention_pallas, the TPU kernel that the LLM tier's prefill and
+// forward run per layer. bf16 inputs run flash_attention_wgmma.cu (wgmma
+// and TMA); this SIMT kernel holds the reference's 2e-5 fp32 bar, which
+// TF32 on the tensor cores cannot.
 //
 // What it computes, for q (B, H, Sq, hd) and k, v (B, KV, Sk, hd), each given
 // by its strides over (b, h, s) with hd contiguous:
@@ -15,10 +18,8 @@
 //
 // Bound on an H100 SXM: 4 * hd flops per visible (query, key) pair against
 // reading q, k, v once and writing o once. At the llama3.2-1b prefill shape
-// (B=4, H=32, S=2048, hd=64, causal, bf16) that is 68.7 GFLOP on 84 MB,
-// about 820 flops per byte, so the ideal kernel is bound by operations
-// (tensor cores: 989 TFLOP/s bf16; fp32 inputs are held to the 67 TFLOP/s
-// FFMA peak).
+// (B=4, H=32, S=2048, hd=64, causal) that is 68.7 GFLOP on 168 MB in fp32,
+// so the ideal kernel is bound by operations at the 67 TFLOP/s FFMA peak.
 //
 // Design: the TPU grid (B, H, Sq/BQ, Sk/BK) ran the key axis as a sequential
 // grid axis into VMEM scratch. Here a block owns one BQ-row query tile of one
@@ -32,10 +33,8 @@
 // shared memory for the P.V product. Key tiles beyond the causal frontier or
 // before the window are never visited; ragged Sq and Sk are masked in the
 // kernel. Query tiles are scheduled last-first so that the longest (causal)
-// tiles start first. Plain fp32 FFMA throughout (SIMT, no tensor cores):
-// wgmma, TMA and a double-buffered K/V ring are left for a later change.
+// tiles start first. Plain fp32 FFMA throughout (SIMT, no tensor cores).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -58,10 +57,6 @@ struct Params {
   float scale, softcap;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int HD, int BQ>
 constexpr size_t smem_bytes() {
@@ -70,7 +65,7 @@ constexpr size_t smem_bytes() {
                           (size_t)BQ * (BK + 1));
 }
 
-template <typename T, int HD, int BQ>
+template <int HD, int BQ>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const Params p) {
   constexpr int R = BQ / TY;      // query rows per thread
@@ -91,16 +86,16 @@ flash_fwd_kernel(const Params p) {
   const int q0 = qt * BQ;
   const int kvh = h / p.G;
 
-  const T* qb = (const T*)p.q + b * p.qs[0] + h * p.qs[1];
-  const T* kb = (const T*)p.k + b * p.ks[0] + kvh * p.ks[1];
-  const T* vb = (const T*)p.v + b * p.vs[0] + kvh * p.vs[1];
-  T* ob = (T*)p.o + b * p.os[0] + h * p.os[1];
+  const float* qb = (const float*)p.q + b * p.qs[0] + h * p.qs[1];
+  const float* kb = (const float*)p.k + b * p.ks[0] + kvh * p.ks[1];
+  const float* vb = (const float*)p.v + b * p.vs[0] + kvh * p.vs[1];
+  float* ob = (float*)p.o + b * p.os[0] + h * p.os[1];
 
   // stage Q transposed: consecutive threads read consecutive columns
   for (int idx = tid; idx < BQ * HD; idx += THREADS) {
     const int i = idx / HD, d = idx % HD;
     const int qi = q0 + i;
-    Qt[d * QP + i] = qi < p.Sq ? to_f(qb[qi * p.qs[2] + d]) : 0.0f;
+    Qt[d * QP + i] = qi < p.Sq ? qb[qi * p.qs[2] + d] : 0.0f;
   }
 
   float m[R], l[R], acc[R][CD];
@@ -126,7 +121,7 @@ flash_fwd_kernel(const Params p) {
     for (int idx = tid; idx < BK * HD; idx += THREADS) {
       const int j = idx / HD, d = idx % HD;
       const int kj = k0 + j;
-      KV[d * KP + j] = kj < p.Sk ? to_f(kb[kj * p.ks[2] + d]) : 0.0f;
+      KV[d * KP + j] = kj < p.Sk ? kb[kj * p.ks[2] + d] : 0.0f;
     }
     __syncthreads();
 
@@ -189,7 +184,7 @@ flash_fwd_kernel(const Params p) {
     for (int idx = tid; idx < BK * HD; idx += THREADS) {
       const int j = idx / HD, d = idx % HD;
       const int kj = k0 + j;
-      KV[j * HD + d] = kj < p.Sk ? to_f(vb[kj * p.vs[2] + d]) : 0.0f;
+      KV[j * HD + d] = kj < p.Sk ? vb[kj * p.vs[2] + d] : 0.0f;
     }
     __syncthreads();
 
@@ -214,44 +209,42 @@ flash_fwd_kernel(const Params p) {
     const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
 #pragma unroll
     for (int c = 0; c < CD; ++c)
-      store(ob + qi * p.os[2] + tx + TX * c, acc[r][c] * inv);
+      ob[qi * p.os[2] + tx + TX * c] = acc[r][c] * inv;
   }
 }
 
-template <typename T, int HD, int BQ>
+template <int HD, int BQ>
 int launch(const Params& p, int B, int H, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, BQ>();
   static bool attr_set = false;   // opt in above 48 KiB once per instance
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD, BQ>,
+        flash_fwd_kernel<HD, BQ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((p.Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, HD, BQ><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<HD, BQ><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const Params& p, int B, int H, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<T, 64, 64>(p, B, H, stream);
-    case 128: return launch<T, 128, 64>(p, B, H, stream);
-    case 256: return launch<T, 256, 32>(p, B, H, stream);
+    case 64: return launch<64, 64>(p, B, H, stream);
+    case 128: return launch<128, 64>(p, B, H, stream);
+    case 256: return launch<256, 32>(p, B, H, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, o: device pointers of `dtype` (0 = fp32, 1 = bf16), laid out by
-// `strides`: 12 element strides, (b, h, s) for q, k, v and o in that order,
-// with hd contiguous. Launches on `stream` and returns cudaGetLastError()
+// q, k, v, o: fp32 device pointers laid out by `strides`: 12 element
+// strides, (b, h, s) for q, k, v and o in that order, with hd contiguous. Launches on `stream` and returns cudaGetLastError()
 // (0 on success); the shape checks raise in the Python wrapper first.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int H, int KV,
+                                   void* o, int B, int H, int KV,
                                    int Sq, int Sk, int hd,
                                    const long long* strides, int causal,
                                    int window, float softcap, int q_offset,
@@ -279,7 +272,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.scale = 1.0f / sqrtf((float)hd);
   p.softcap = softcap;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(p, B, H, hd, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, H, hd, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(p, B, H, hd, s);
 }

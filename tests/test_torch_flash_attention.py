@@ -124,10 +124,10 @@ def test_row_without_visible_key_gives_zero():
 
 def test_dispatch_and_validation():
     q, k, v = (torch.tensor(a) for a in _qkv(6, 1, 8, 8, 2, 2, 64))
-    before = fa_kernel.launches
+    before = fa_kernel.launches()
     assert torch.equal(tops.flash_attention(q, k, v),
                        tops.flash_attention(q, k, v, backend="ref"))
-    assert fa_kernel.launches == before        # CPU: the plain version
+    assert fa_kernel.launches() == before        # CPU: the plain version
     with pytest.raises(ValueError, match="backend"):
         tops.flash_attention(q, k, v, backend="pallas")
     with pytest.raises(ValueError, match="CUDA"):
@@ -155,6 +155,201 @@ def test_kernel_route_refuses_autograd(monkeypatch):
         tops.flash_attention(q.detach(), k, v.requires_grad_())
 
 
+def _entry_spy(monkeypatch):
+    """Replace both C entry points with recorders: {route: [args, ...]}."""
+    calls = {fa_kernel.BF16_ROUTE: [], fa_kernel.F32_ROUTE: []}
+
+    def entry(route):
+        def fn(*args):
+            calls[route].append(args)
+            return 0
+        return fn
+    monkeypatch.setattr(fa_kernel, "_entry", entry)
+    return calls
+
+
+def _model_views(dtype, B=2, Sq=40, Sk=56, H=4, KV=2, hd=64):
+    """q, k, v as the model hands them: (B, S, heads, hd) transposed."""
+    q, k, v = (torch.tensor(a).to(dtype)
+               for a in _qkv(9, B, Sq, Sk, H, KV, hd))
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype,route,kw", [
+    (torch.bfloat16, "bf16_wgmma", dict(causal=True, window=0, softcap=0.0,
+                                        q_offset=0)),
+    (torch.bfloat16, "bf16_wgmma", dict(causal=True, window=24, softcap=50.0,
+                                        q_offset=16)),
+    (torch.bfloat16, "bf16_wgmma", dict(causal=False, window=0, softcap=0.0,
+                                        q_offset=-8)),
+    (torch.float32, "f32_simt", dict(causal=True, window=0, softcap=0.0,
+                                     q_offset=0)),
+    (torch.float32, "f32_simt", dict(causal=True, window=24, softcap=50.0,
+                                     q_offset=16)),
+])
+def test_route_by_dtype(monkeypatch, dtype, route, kw):
+    """bf16 reaches the wgmma entry point and fp32 the SIMT one, with the
+    shape, the model layout's strides (no copy), the output's strides and
+    the flags; each route counts its own launches."""
+    calls = _entry_spy(monkeypatch)
+    q, k, v = _model_views(dtype)
+    before = dict(fa_kernel.route_launches)
+    out = fa_kernel.launch_on_stream(q, k, v, 7, **kw)
+    other = ({"bf16_wgmma", "f32_simt"} - {route}).pop()
+    assert len(calls[route]) == 1 and calls[other] == []
+    args = calls[route][0]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    rest = args[4:]
+    B, H, Sq, hd = q.shape
+    assert rest[:6] == (B, H, k.shape[1], Sq, k.shape[2], hd)
+    assert list(rest[6]) == [s for t in (q, k, v, out)
+                             for s in t.stride()[:3]]
+    assert rest[7:] == (int(kw["causal"]), kw["window"],
+                        kw["softcap"], kw["q_offset"], 7)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert out.stride() == q.stride()           # q's (model) layout
+    assert fa_kernel.route_launches[route] == before[route] + 1
+    assert fa_kernel.route_launches[other] == before[other]
+
+
+@pytest.mark.parametrize("rc,message", [
+    (-1, "cuTensorMapEncodeTiled is not available"),
+    (-1000 - 1, "cuTensorMapEncodeTiled failed, CUresult 1"),
+    (999, "launch failed: CUDA error 999"),     # cudaErrorUnknown
+    (1, "launch failed: CUDA error 1"),
+])
+def test_entry_error_codes(monkeypatch, rc, message):
+    """The bf16 entry point's own codes are negative, and every CUDA error
+    (positive) keeps its own message; each raises and counts no launch."""
+    monkeypatch.setattr(fa_kernel, "_entry", lambda route: lambda *a: rc)
+    q, k, v = _model_views(torch.bfloat16)
+    before = fa_kernel.launches()
+    with pytest.raises(RuntimeError, match=message):
+        fa_kernel.launch_on_stream(q, k, v, 0)
+    assert fa_kernel.launches() == before
+
+
+def _offset_view(B, H, S, hd, offset):
+    """A (B, H, S, hd) view `offset` elements into its storage."""
+    base = torch.zeros(B * H * S * hd + 16, dtype=torch.bfloat16)
+    return base[offset:offset + B * H * S * hd].view(B, H, S, hd)
+
+
+@pytest.mark.parametrize("case,copies", [
+    ("model layout view", False),
+    ("contiguous", False),
+    ("head slice of a wider tensor", False),
+    ("odd storage offset", True),
+    ("storage offset 4 (8 bytes)", True),
+    ("row stride 68", True),
+    ("expanded kv heads (stride 0)", True),
+    ("size-1 dims with odd strides", False),
+])
+def test_tma_predicate(monkeypatch, case, copies):
+    """tma_strides' verdict on each view, and what the bf16 route does with
+    it: pass the view as it lies, or copy it (never hand TMA a view it
+    cannot address). The fp32 route copies none of them."""
+    B, H, S, hd = 2, 4, 24, 64
+    t = {
+        "model layout view": lambda: torch.zeros(
+            B, S, H, hd, dtype=torch.bfloat16).transpose(1, 2),
+        "contiguous": lambda: torch.zeros(B, H, S, hd, dtype=torch.bfloat16),
+        "head slice of a wider tensor": lambda: torch.zeros(
+            B, S, H + 2, hd, dtype=torch.bfloat16).transpose(1, 2)[:, :H],
+        "odd storage offset": lambda: _offset_view(B, H, S, hd, 1),
+        "storage offset 4 (8 bytes)": lambda: _offset_view(B, H, S, hd, 4),
+        "row stride 68": lambda: torch.zeros(
+            B, H, S, 68, dtype=torch.bfloat16)[..., :hd],
+        "expanded kv heads (stride 0)": lambda: torch.zeros(
+            B, 1, S, hd, dtype=torch.bfloat16).expand(B, H, S, hd),
+        "size-1 dims with odd strides": lambda: torch.zeros(
+            1, 1, S, hd, dtype=torch.bfloat16).as_strided(
+                (1, 1, S, hd), (3, 5, hd, 1)),
+    }[case]()
+    st = fa_kernel.tma_strides(t)
+    assert (st is None) == copies
+    if st is not None:
+        assert all(s > 0 and s % 8 == 0 for s in st)
+        assert [s for n, s in zip(t.shape, st) if n > 1] == \
+            [s for n, s in zip(t.shape[:3], t.stride()) if n > 1]
+    calls = _entry_spy(monkeypatch)
+    q = t
+    k = v = torch.zeros(t.shape[0], 1, S, hd, dtype=torch.bfloat16)
+    fa_kernel.launch_on_stream(q, k, v, 0)
+    args = calls["bf16_wgmma"][0]
+    passed_q = args[0] == q.data_ptr()
+    assert passed_q != copies
+    q_strides = list(args[10])[:3]
+    fresh = q.clone(memory_format=torch.contiguous_format)
+    assert q_strides == list(fa_kernel.tma_strides(fresh) if copies else st)
+    assert args[0] % 16 == 0
+    fa_kernel.launch_on_stream(q.float(), k.float(), v.float(), 0)
+    assert len(calls["f32_simt"]) == 1
+
+
+def _visible_mask(Sq, Sk, causal, window, q_offset):
+    """ref.mha_reference's mask, (Sq, Sk) booleans."""
+    qpos = np.arange(Sq)[:, None] + q_offset
+    kpos = np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+@pytest.mark.parametrize("bq,bk", [(64, 128), (64, 64), (128, 128),
+                                   (128, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_kinds_cover_the_mask(bq, bk, causal):
+    """Exhaustively over ragged shapes, windows that cut tiles and negative
+    q_offset: every visible pair lies in a FULL or MASKED tile, no pair of
+    a FULL tile is masked, a SKIP tile holds none, and each row block's
+    non-SKIP tiles are one run (the block loads a contiguous range)."""
+    checked = {fa_kernel.SKIP: 0, fa_kernel.FULL: 0, fa_kernel.MASKED: 0}
+    for Sq in (1, 37, 64, 128, 200, 256):
+        for Sk in (1, 50, 128, 300):
+            for window in (0, 1, 50, 128, 4096):
+                for q_offset in (0, -40, 63, Sk - Sq, 1792):
+                    mask = _visible_mask(Sq, Sk, causal, window, q_offset)
+                    kinds = fa_kernel.tile_kinds(Sq, Sk, bq, bk, causal,
+                                                 window, q_offset)
+                    assert kinds.shape == (-(-Sq // bq), -(-Sk // bk))
+                    for qt, row in enumerate(kinds):
+                        live = np.flatnonzero(row != fa_kernel.SKIP)
+                        if live.size:
+                            assert np.all(np.diff(live) == 1)
+                        for kt, kind in enumerate(row):
+                            tile = mask[qt * bq:(qt + 1) * bq,
+                                        kt * bk:(kt + 1) * bk]
+                            checked[kind] += 1
+                            if kind == fa_kernel.SKIP:
+                                assert not tile.any()
+                            elif kind == fa_kernel.FULL:
+                                assert tile.all()
+                                assert tile.shape[1] == bk  # no Sk tail
+    assert all(n > 0 for n in checked.values()), checked
+
+
+def test_warpgroup_tiles_lie_in_the_block_range():
+    """A warpgroup (WG_ROWS rows) never needs a key tile its block
+    (BQ rows) does not load."""
+    bq, wg = fa_kernel.BQ, fa_kernel.WG_ROWS
+    for hd, bk in fa_kernel.BK.items():
+        for Sq, Sk, window, q_offset in [(300, 300, 0, 0), (333, 700, 100, 0),
+                                         (256, 2048, 0, 1792),
+                                         (96, 96, 0, -40), (1, 1, 0, 0)]:
+            blocks = fa_kernel.tile_kinds(Sq, Sk, bq, bk, True, window,
+                                          q_offset)
+            groups = fa_kernel.tile_kinds(Sq, Sk, wg, bk, True, window,
+                                          q_offset)
+            for g, row in enumerate(groups):
+                need = row != fa_kernel.SKIP
+                assert not (need & (blocks[g // 2] == fa_kernel.SKIP)).any()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -164,31 +359,75 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,q_offset,window,softcap", [
-    (2, 256, 256, 8, 2, 64, 0, 0, 0.0),
-    (1, 1000, 1000, 4, 2, 64, 0, 0, 0.0),     # ragged
-    (1, 512, 512, 8, 4, 256, 0, 128, 50.0),   # gemma2 local layer
-    (1, 512, 512, 8, 4, 256, 0, 0, 50.0),     # gemma2 global layer
-    (2, 192, 192, 8, 8, 128, 0, 0, 0.0),
-    (1, 64, 300, 4, 1, 64, 236, 0, 0.0),      # q_offset, MQA
-    (1, 96, 96, 4, 2, 64, -40, 0, 0.0),       # rows that see no key give 0
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,q_offset,window,softcap,causal", [
+    (2, 256, 256, 8, 2, 64, 0, 0, 0.0, True),
+    (1, 1000, 1000, 4, 2, 64, 0, 0, 0.0, True),     # ragged
+    (1, 512, 512, 8, 4, 256, 0, 128, 50.0, True),   # gemma2 local layer
+    (1, 512, 512, 8, 4, 256, 0, 0, 50.0, True),     # gemma2 global layer
+    (2, 192, 192, 8, 8, 128, 0, 0, 0.0, True),
+    (1, 64, 300, 4, 1, 64, 236, 0, 0.0, True),      # q_offset, MQA
+    (1, 96, 96, 4, 2, 64, -40, 0, 0.0, True),       # rows that see no key: 0
+    # every tile kind of the bf16 wgmma kernel (BQ 128, BK 128 / 64 at hd 256)
+    (1, 1, 1, 2, 1, 64, 0, 0, 0.0, True),           # Sq = Sk = 1
+    (2, 50, 70, 4, 2, 64, 20, 0, 0.0, True),        # Sk < BK, q tail
+    (1, 333, 333, 4, 2, 64, 0, 0, 0.0, True),       # not a multiple of 64, 128
+    (1, 300, 300, 4, 2, 64, 0, 100, 0.0, True),     # window cuts inside tiles
+    (2, 257, 257, 8, 1, 64, 0, 0, 30.0, True),      # MQA (KV = 1), softcap
+    (1, 201, 201, 4, 2, 128, 0, 77, 0.0, True),     # hd 128 ragged, window
+    (1, 130, 195, 4, 4, 256, 65, 0, 50.0, True),    # hd 256 ragged, softcap
+    (2, 256, 2048, 8, 2, 64, 1792, 0, 0.0, True),   # q tail at q_offset
+    # not causal: every key up to Sk - 1; a window cuts only below
+    (1, 300, 300, 4, 2, 64, 0, 100, 0.0, False),    # window cuts inside tiles
+    (1, 333, 500, 4, 2, 128, 0, 0, 0.0, False),     # ragged, Sk > Sq
+    (1, 130, 195, 4, 4, 256, 65, 70, 50.0, False),  # hd 256, window, softcap
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_cuda(cuda_device, B, Sq, Sk, H, KV, hd,
-                                      q_offset, window, softcap, dtype):
+                                      q_offset, window, softcap, causal,
+                                      dtype):
     """The hand-written kernel against its plain version on the same CUDA
     inputs; the reference's bars, 2e-5 fp32 and 2e-2 bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = (torch.tensor(a, device=cuda_device).to(dtype)
                for a in _qkv(7, B, Sq, Sk, H, KV, hd))
-    kw = dict(q_offset=q_offset, window=window, softcap=softcap)
-    before = fa_kernel.launches
+    kw = dict(q_offset=q_offset, window=window, softcap=softcap,
+              causal=causal)
+    before = fa_kernel.launches()
     out = tops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa_kernel.launches == before + 1
+    assert fa_kernel.launches() == before + 1
     assert out.dtype == dtype and out.is_contiguous()
     ref = tops.flash_attention(q, k, v, backend="ref", **kw)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     if q_offset < 0:
         assert torch.all(out[:, :-q_offset] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["strided model-layout q",
+                                  "misaligned storage offset"])
+def test_bf16_kernel_views_on_cuda(cuda_device, case):
+    """The bf16 route on views: a non-contiguous model-layout q (a head
+    slice of a wider tensor) is read in place by TMA; a q whose storage
+    offset breaks TMA's 16-byte alignment is copied first. Both agree with
+    the plain version and launch the wgmma kernel once."""
+    B, Sq, Sk, H, KV, hd = 2, 200, 200, 4, 2, 64
+    qn, kn, vn = _qkv(10, B, Sq, Sk, H, KV, hd)
+    if case == "strided model-layout q":
+        wide = np.concatenate([qn, qn[:, :, :2]], axis=2)   # H + 2 heads
+        q = torch.tensor(wide, device=cuda_device).bfloat16()[:, :, :H]
+        assert not q.is_contiguous()
+    else:
+        flat = torch.zeros(qn.size + 8, device=cuda_device,
+                           dtype=torch.bfloat16)
+        q = flat[3:3 + qn.size].view(qn.shape)
+        q.copy_(torch.tensor(qn))
+        assert fa_kernel.tma_strides(q.transpose(1, 2)) is None
+    k, v = (torch.tensor(a, device=cuda_device).bfloat16() for a in (kn, vn))
+    before = fa_kernel.route_launches["bf16_wgmma"]
+    out = tops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_kernel.route_launches["bf16_wgmma"] == before + 1
+    ref = tops.flash_attention(q, k, v, backend="ref")
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
