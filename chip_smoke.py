@@ -75,9 +75,10 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet): fp32 FFMA
-# outside the tensor cores, bf16 on the tensor cores, and device-memory
-# bandwidth, in units per second.
-H100_SXM = {"fp32_flops": 67e12, "bf16_flops": 989e12, "bytes": 3.35e12}
+# outside the tensor cores, TF32 and bf16 on the tensor cores, and
+# device-memory bandwidth, in units per second.
+H100_SXM = {"fp32_flops": 67e12, "tf32_flops": 495e12, "bf16_flops": 989e12,
+            "bytes": 3.35e12}
 
 # the Experiment II layout at the width of the paper's mnist model
 D, C, N_IJ, M_TILDE, ANCHOR_R = 5, 4, 100, 50, 2000
@@ -86,8 +87,9 @@ MAIN_SHAPES = [(D, ANCHOR_R, C * M_TILDE), (1, ANCHOR_R, D * M_TILDE),
                (1, ANCHOR_R, C * M_TILDE)]
 MAIN_COUNTS = [1, 1, D]  # launches of each shape in one fit
 EXTRA_SHAPES = [(3, 1037, 77),            # ragged edges in r and m
+                (2, 17, 1),               # almost no work: a call's fixed cost
                 (16, 8192, 1024)]         # a large deployment: 512 MiB in
-GRAM_TOL = 1e-5          # kernel vs plain, relative Frobenius (fp32 FFMA)
+GRAM_TOL = 1e-5          # kernel (3xTF32) vs plain (fp32 FFMA), relative Frobenius
 DEVICE_HOST_TOL = 1e-3   # the reference's device-vs-host bar
 ONBOARD_TOL = 1e-5       # incremental == recompute on device
 
@@ -154,6 +156,49 @@ def time_ms(fn, reps: int) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def graph_ms(fn, calls: int, reps: int = 7) -> float:
+    """Median device time per call of fn(), `calls` calls captured in one
+    CUDA graph and replayed: the card's time for the work alone, with no
+    host launch cost between calls (where a call is shorter than its host
+    launch, `time_ms` times the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / calls)
+    del graph
+    return statistics.median(out)
+
+
+def host_call_us(fn, calls: int) -> float:
+    """Host time per call of fn(), `calls` calls issued back to back (the
+    device syncs only before and after): what a call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def profile_device(fn):
@@ -224,6 +269,22 @@ def phase_device():
 
 # -- phase 2 ---------------------------------------------------------------
 
+def gram_bounds(peak, b, r, m):
+    """The least time for fp32-accurate AᵀA: the output is symmetric, so
+    one triangle and the diagonal, B·r·m·(m+1) flops, is all the function
+    needs, done as FFMA or as three TF32 products on the tensor cores,
+    whichever is faster; a read once and the output written once.
+    Returns (bound ms, bound_by, the FFMA-only bound ms)."""
+    flops = 1.0 * b * r * m * (m + 1)
+    t_bytes = 4.0 * (b * r * m + b * m * m) / peak["bytes"] * 1e3
+    t_ffma = flops / peak["fp32_flops"] * 1e3
+    t_tf32 = 3.0 * flops / peak["tf32_flops"] * 1e3
+    t_ops = min(t_ffma, t_tf32)
+    by = ("bytes" if t_bytes >= t_ops
+          else "3xtf32" if t_tf32 <= t_ffma else "ffma")
+    return max(t_ops, t_bytes), by, max(t_ffma, t_bytes)
+
+
 def phase_kernel_check(peak):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -232,30 +293,50 @@ def phase_kernel_check(peak):
         b, r, m = shape
         a = torch.randn(shape, generator=gen, device=dev)
         g = gram_ops.gram_batched(a)
+        g_again = gram_ops.gram_batched(a)
         g_ref = gram_ops.gram_batched(a, backend="ref")
         torch.cuda.synchronize()
         err = float(torch.linalg.norm(g - g_ref) / torch.linalg.norm(g_ref))
         max_abs = float((g - g_ref).abs().max())
-        reps = 5 if r * m * b > 1e8 else 50
-        ms = time_ms(lambda: gram_ops.gram_batched(a), reps)
-        plain_ms = time_ms(lambda: gram_ops.gram_batched(a, backend="ref"), reps)
-        library_ms = time_ms(lambda: torch.bmm(a.mT, a), reps)
-        # the output is symmetric: one triangle and the diagonal is all the
-        # function needs, though the kernel computes every tile
+        symmetric = torch.equal(g, g.mT)
+        repeatable = torch.equal(g, g_again)
+        # per call between CUDA events, as every kernel row is timed (`ms`,
+        # `plain_ms`, `library_ms`): what the fit's eager calls see, the
+        # host's launch included where it is longer than the kernel; the
+        # card's time alone from graph replays (`device_ms`, ...); and the
+        # host's time per call (`host_us`, ...)
+        big = r * m * b > 1e8
+        kernel = lambda: gram_ops.gram_batched(a)
+        plain = lambda: gram_ops.gram_batched(a, backend="ref")
+        library = lambda: torch.bmm(a.mT, a)
+        reps, calls = (5, 3) if big else (50, 50)
+        ms, plain_ms, library_ms = (time_ms(f, reps)
+                                    for f in (kernel, plain, library))
+        device_ms, plain_device_ms, library_device_ms = (
+            graph_ms(f, calls) for f in (kernel, plain, library))
+        host_us, library_host_us = (host_call_us(f, calls)
+                                    for f in (kernel, library))
         flops = 1.0 * b * r * m * (m + 1)
-        nbytes = 4.0 * (b * r * m + b * m * m)
-        t_ops = flops / peak["fp32_flops"] * 1e3
-        t_bytes = nbytes / peak["bytes"] * 1e3
+        bound_ms, bound_by, ffma_bound_ms = gram_bounds(peak, b, r, m)
+        p = gram_kernel.plan(b, r, m, gram_kernel._sm_count(a.get_device()))
         row = {"phase": "kernel_check", "shape": list(shape),
-               "rel_frobenius": err, "max_abs_err": max_abs, "ms": ms,
+               "rel_frobenius": err, "max_abs_err": max_abs,
+               "symmetric": symmetric, "repeatable": repeatable, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "gflops_per_s": flops / ms / 1e6}
+               "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+               "library_device_ms": library_device_ms,
+               "host_us": host_us, "library_host_us": library_host_us,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ffma_bound_ms": ffma_bound_ms,
+               "device_share_of_bound": bound_ms / device_ms,
+               "split": p.split, "blocks": p.blocks,
+               "device_gflops_per_s": flops / device_ms / 1e6}
         emit(row)
         rows.append(row)
         check(err <= GRAM_TOL, f"gram kernel vs plain at {shape}: {err}")
-        del a, g, g_ref
+        check(symmetric, f"gram kernel output not exactly symmetric at {shape}")
+        check(repeatable, f"gram kernel not bitwise repeatable at {shape}")
+        del a, g, g_again, g_ref
     torch.cuda.empty_cache()
     return rows
 
@@ -997,9 +1078,14 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": per_fit("ms"), "plain_ms": per_fit("plain_ms"),
         "bound_ms": per_fit("bound_ms"),
-        "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                        for r in main_rows) else "bytes",
-        "library_ms": per_fit("library_ms")}, {
+        # the side that bounds most of the fit's bound time
+        "bound_by": "bytes" if 2 * sum(
+            n * r["bound_ms"] for n, r in zip(MAIN_COUNTS, main_rows)
+            if r["bound_by"] == "bytes") >= per_fit("bound_ms")
+        else "operations",
+        "library_ms": per_fit("library_ms"),
+        "device_ms": per_fit("device_ms"),
+        "library_device_ms": per_fit("library_device_ms")}, {
         "name": "flash_attention_fwd_bf16_wgmma", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_wgmma.cu",

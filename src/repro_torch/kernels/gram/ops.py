@@ -38,7 +38,7 @@ def gram_batched(a: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     if backend not in _BACKENDS:
         raise ValueError(f"unknown gram backend {backend!r}; "
                          f"choose from {_BACKENDS}")
-    if backend == "ref" or a.device.type == "cpu":
+    if backend == "ref" or a.is_cpu:
         return ref.gram_batched_reference(a)
     return gram_batched_cuda(a)
 
