@@ -15,17 +15,18 @@ paths through the port's public entry points:
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
   BatchedServer, and gemma2-2b prefill (bf16 and fp32, 8192 tokens, past
   its 4096-token window): the flash-attention kernels' path (bf16: the
-  wgmma/TMA kernel; fp32: the SIMT kernel), held against the plain
-  attention path of the same model;
+  wgmma/TMA kernel; fp32: the 3xTF32 mma.sync kernel), held against the
+  plain attention path of the same model;
 - the rwkv6-3b training path at full width and depth with random weights
   from a seed, under TrainConfig's defaults (params fp32, compute bf16,
   AdamW fp32, remat on): TokenStream batches of 2 x 1024 tokens through
   make_train_step for a few steps: the WKV6 kernel's path, its loss held
   against the plain WKV6 path of the same model in fp32.
 
-Each phase prints one JSON line. The line before the last lists every
-kernel with its launches on the main path, error and times; the last line
-is {"ok": true, "device": {...}}. Any failure exits non-zero before it.
+Each phase prints one JSON line. Host-bound rows (the fit's step 4, decode,
+the server, the train step) give min / median / max over repeats. The line
+before the last lists every kernel with its launches on the main path,
+error and times; the last line is {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 Without CUDA, or without the rest of the repository beside it, the script
 fails and prints no result.
 """
@@ -109,6 +110,7 @@ BF16_GAP = 2.0           # bf16 kernel path's gap to the fp32 plain path, as
                          # a multiple of the bf16 plain path's own gap
 PREFILL_B, PREFILL_S, PREFILL_CACHE = 4, 2048, 4096
 DECODE_STEPS = 32
+REPEATS = 3              # decode and server runs, each timed (min / median / max)
 GEMMA_S = 8192           # > the 4096-token window: local layers mask
 
 # WKV6: (name, B, S, H, K, V); the first is rwkv6-3b's train shape
@@ -132,6 +134,13 @@ def check(cond: bool, what: str) -> None:
 def rel(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def spread(xs) -> dict:
+    """min / median / max of repeated measurements, and how many."""
+    xs = [float(x) for x in xs]
+    return {"min": min(xs), "median": statistics.median(xs),
+            "max": max(xs), "n": len(xs)}
 
 
 def peaks_for(smi: str):
@@ -357,13 +366,20 @@ def phase_fit(dev, rounds: int = 20):
     t0 = time.perf_counter()
     Xs, Ys, Xte, Yte = mnist_exp2_layout()
     data_s = time.perf_counter() - t0
+    # each round ends in a host sync (its loss), then calls eval_fn: the
+    # stamps give every round's wall time
+    stamps = []
     model = FedDCL(m_tilde=M_TILDE, hidden=(500, 100), task="classification",
                    rounds=rounds, local_epochs=4, batch_size=32,
                    anchor_r=ANCHOR_R, svd_backend="device", engine="host",
-                   device=dev)
+                   device=dev,
+                   eval_fn=lambda _: stamps.append(time.perf_counter()) or {})
     gram_kernel.reset_launches()
+    t0 = time.perf_counter()
     setup, res = model.fit(Xs, Ys)
     launches = gram_kernel.launches
+    round_s = np.diff([t0 + model.fit_seconds_["protocol"]] + stamps)
+    check(len(round_s) == rounds, f"{len(round_s)} round times of {rounds}")
     acc = model.score(Xte, Yte)
     # step 5: every user's integrated model t(X) = h(f(X) G); user (0,0)'s
     # must answer as the estimator's predict does
@@ -381,6 +397,8 @@ def phase_fit(dev, rounds: int = 20):
                                       "batch_size": 32},
            "data_s": data_s, "steps_1_3_s": model.fit_seconds_["protocol"],
            "step_4_s": model.fit_seconds_["federated"],
+           "step_4_round_s": spread(round_s),
+           "step_4_each_round_s": round_s.tolist(),
            "final_loss": res.history[-1]["loss"], "test_accuracy": acc,
            "gram_launches": launches, "users": len(trips),
            "two_communications_per_user": all(v == 2 for v in trips.values())}
@@ -509,6 +527,26 @@ def library_call(q, k, v, Sq, Sk, window, softcap, q_offset):
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
 
+def flash_bounds(peak, dtype, flops, nbytes):
+    """The least time for the attention's work: q, k, v read and o written
+    once, 4·hd flops per visible pair done at the dtype's fastest route:
+    bf16 on the tensor cores; fp32-accurate as FFMA or as three TF32
+    products on the tensor cores, whichever is faster (as gram_bounds).
+    Returns (bound ms, "operations" or "bytes", the route that bounds the
+    operations, the FFMA-only bound ms or None)."""
+    t_bytes = nbytes / peak["bytes"] * 1e3
+    if dtype == torch.bfloat16:
+        t_ops, kind, t_ffma = flops / peak["bf16_flops"] * 1e3, "bf16", None
+    else:
+        t_ffma = flops / peak["fp32_flops"] * 1e3
+        t_tf32 = 3.0 * flops / peak["tf32_flops"] * 1e3
+        t_ops, kind = ((t_tf32, "3xtf32") if t_tf32 <= t_ffma
+                       else (t_ffma, "ffma"))
+        t_ffma = max(t_ffma, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, kind, t_ffma
+
+
 def phase_flash_check(dev, peak):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
@@ -544,24 +582,27 @@ def phase_flash_check(dev, peak):
             pairs = visible_pairs(Sq, Sk, True, window, q_offset)
             flops = 4.0 * hd * B * H * pairs
             nbytes = float(q.element_size() * (2 * q.numel() + 2 * k.numel()))
-            t_ops = flops / peak["bf16_flops" if dtype == torch.bfloat16
-                                 else "fp32_flops"] * 1e3
-            t_bytes = nbytes / peak["bytes"] * 1e3
+            bound_ms, bound_by, bound_kind, ffma_bound_ms = flash_bounds(
+                peak, dtype, flops, nbytes)
             reps = 3 if flops > 1e11 else 10
-            ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps)
+            kernel = lambda: fa_ops.flash_attention(q, k, v, **kw)
+            ms = time_ms(kernel, reps)
             plain_ms = time_ms(lambda: fa_ops.flash_attention(
                 q, k, v, backend="ref", **kw), reps)
             library_ms = time_ms(lib, reps)
+            # the card's time alone (graph replay)
+            device_ms = graph_ms(kernel, 1 if flops > 1e11 else 10, reps=3)
             row = {"phase": "flash_check", "shape": name, "route": ran[0],
                    "B_H_KV_Sq_Sk_hd": [B, H, KV, Sq, Sk, hd],
                    "window": window, "softcap": softcap,
                    "q_offset": q_offset, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": max_abs, "tol": tol,
-                   "err_over_bar": excess, "ms": ms, "plain_ms": plain_ms,
+                   "err_over_bar": excess, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                    "library": lib_name, "library_ms": library_ms,
                    "library_max_abs_err": lib_abs,
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_kind": bound_kind, "ffma_bound_ms": ffma_bound_ms,
+                   "share_of_bound": bound_ms / ms,
                    "visible_pairs": pairs, "tflops_per_s": flops / ms / 1e9}
             emit(row)
             rows.append(row)
@@ -708,26 +749,38 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
         return out
 
     fa_kernel.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = decode_run()
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    check(bool(torch.isfinite(out).all()), "decode logits")
+    decode_runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_run()
+        torch.cuda.synchronize()
+        decode_runs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out).all()), "decode logits")
+    decode_s = statistics.median(decode_runs)
     check(fa_kernel.launches() == 0, "decode runs no flash kernel")
     prof_wall, per_kernel, kernels = profile_device(decode_run)
     busy_s = sum(per_kernel.values())
 
     # BatchedServer at full width, as serve.py:main runs it
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=rng.integers(4, 12)),
-                    max_new=16) for i in range(8)]
-    server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev)
-    t0 = time.perf_counter()
-    outs = server.serve(reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    def requests():   # a Request keeps its output: fresh ones each run
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   size=rng.integers(4, 12)),
+                        max_new=16) for i in range(8)]
+
+    serve_runs = []
+    for _ in range(REPEATS):
+        reqs = requests()
+        server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev)
+        t0 = time.perf_counter()
+        outs = server.serve(reqs)
+        torch.cuda.synchronize()
+        serve_runs.append(time.perf_counter() - t0)
+        check(set(outs.status.values()) == {"done"}
+              and all(len(v) == 16 for v in outs.values()),
+              f"server statuses {outs.status}")
+    serve_s = statistics.median(serve_runs)
     total = sum(len(v) for v in outs.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     row = {"phase": "llm_decode", "arch": cfg.name,
@@ -736,6 +789,8 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
                     "ms_per_step": decode_s / DECODE_STEPS * 1e3,
                     "decode_tokens_per_s":
                         PREFILL_B * DECODE_STEPS / decode_s,
+                    "decode_tokens_per_s_spread": spread(
+                        PREFILL_B * DECODE_STEPS / t for t in decode_runs),
                     "profiled_device_busy_share": busy_s / prof_wall,
                     "device_ms_per_step": busy_s / DECODE_STEPS * 1e3,
                     "kernels_per_step": kernels / DECODE_STEPS},
@@ -744,11 +799,10 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
                            "prompt_tokens": prompt_tokens,
                            "new_tokens": total, "serve_s": serve_s,
                            "server_tokens_per_s": total / serve_s,
+                           "server_tokens_per_s_spread": spread(
+                               total / t for t in serve_runs),
                            "status": sorted(set(outs.status.values()))}}
     emit(row)
-    check(set(outs.status.values()) == {"done"}
-          and all(len(v) == 16 for v in outs.values()),
-          f"server statuses {outs.status}")
     return row
 
 
@@ -790,7 +844,7 @@ def phase_gemma2_prefill(dev):
            "logits_finite": finite, "bf16": bf16}
     emit(row)
     check(launches == cfg.num_layers and row["all_launches"] == launches,
-          f"fp32 SIMT flash launches in one gemma2 prefill: {launches} of "
+          f"fp32 3xTF32 flash launches in one gemma2 prefill: {launches} of "
           f"{row['all_launches']} (expected {cfg.num_layers})")
     check(row["logits_finite"], "gemma2 logits")
     check(err <= LM_TOL, f"gemma2 fp32 kernel vs plain logits: {err}")
@@ -993,6 +1047,7 @@ def phase_rwkv6_train(dev, wkv_main):
            "init_s": init_s, "params_and_opt_state_gb": state_gb,
            "losses": losses, "loss_fell": losses[-1] < losses[0],
            "step_s": step_s, "steady_step_s": steady_s,
+           "steady_step_s_spread": spread(step_s[1:]),
            "train_tokens_per_s": TRAIN_B * TRAIN_S / steady_s,
            "max_memory_allocated_gb": peak_gb,
            "wkv6_launches": launches, "wkv6_launches_per_step": per_step,
@@ -1091,20 +1146,24 @@ def main() -> int:
                   "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
         "launches": n_fa, "max_abs_err": fa_main["max_abs_err"],
-        "ms": n_fa * fa_main["ms"], "plain_ms": n_fa * fa_main["plain_ms"],
+        "ms": n_fa * fa_main["ms"], "device_ms": n_fa * fa_main["device_ms"],
+        "plain_ms": n_fa * fa_main["plain_ms"],
         "bound_ms": n_fa * fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": n_fa * fa_main["library_ms"]}, {
-        "name": "flash_attention_fwd_f32", "route": "cuda",
+        "name": "flash_attention_fwd_f32_3xtf32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
         "launches": n_f32,
         "max_abs_err": max(r["max_abs_err"] for r in f32_main),
-        "ms": per_gemma("ms"), "plain_ms": per_gemma("plain_ms"),
+        "ms": per_gemma("ms"), "device_ms": per_gemma("device_ms"),
+        "plain_ms": per_gemma("plain_ms"),
         "bound_ms": per_gemma("bound_ms"),
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in f32_main) else "bytes",
+        "bound_kind": f32_main[0]["bound_kind"],
+        "ffma_bound_ms": per_gemma("ffma_bound_ms"),
         # flex_attention: SDPA has no softcap
         "library_ms": per_gemma("library_ms")}, {
         "name": "wkv6_fwd", "route": "cuda",

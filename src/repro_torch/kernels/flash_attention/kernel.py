@@ -9,13 +9,16 @@ fp32 or bf16 in, q's dtype out, with GQA, causal / sliding-window masks,
 ``q_offset`` and the tanh softcap. Two routes, by dtype:
 
 - bf16: the Hopper kernel (``flash_attention_fwd_bf16_wgmma``): both
-  products on the tensor cores with wgmma, K/V staged by TMA. TMA reads a
-  view through its strides, so the model layout (B, S, H, hd) reaches it as
-  a transposed view with no copy; a view TMA cannot address (a base that is
-  not 16-byte aligned, a stride that is not a positive multiple of 8
-  elements) is copied first (``tma_strides``).
-- fp32: the SIMT kernel (``flash_attention_fwd``), fp32 FFMA, which holds
-  the reference's 2e-5 fp32 bar (TF32 on the tensor cores cannot).
+  products on the tensor cores with wgmma, K/V staged by TMA.
+- fp32: ``flash_attention_fwd``, both products on the tensor cores in
+  3xTF32 (mma.sync), K/V staged by cp.async; it holds the reference's 2e-5
+  fp32 bar, which plain TF32 cannot. ``flash_3xtf32`` is its arithmetic in
+  plain torch, for the CPU tests.
+
+Both read q, k, v through their strides in 16-byte pieces, so the model
+layout (B, S, H, hd) reaches them as a transposed view with no copy; a view
+they cannot address (a base that is not 16-byte aligned, a stride that is
+not a positive multiple of 16 bytes) is copied first (``tma_strides``).
 
 Ragged Sq and Sk are masked in the kernels (no divisibility rule). The
 output takes q's layout. It takes CUDA tensors only; ``ops.flash_attention``
@@ -28,6 +31,7 @@ through the kernel it expects.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -35,12 +39,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.tf32 import tf32_trunc
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = _CSRC / "flash_attention.cu"
 WGMMA_SOURCE = _CSRC / "flash_attention_wgmma.cu"
 HEAD_DIMS = (64, 128, 256)
-BF16_ROUTE, F32_ROUTE = "bf16_wgmma", "f32_simt"
+BF16_ROUTE, F32_ROUTE = "bf16_wgmma", "f32_3xtf32"
 _ENTRY = {BF16_ROUTE: (WGMMA_SOURCE, "flash_attention_fwd_bf16_wgmma"),
           F32_ROUTE: (SOURCE, "flash_attention_fwd")}
 
@@ -48,6 +53,11 @@ _ENTRY = {BF16_ROUTE: (WGMMA_SOURCE, "flash_attention_fwd_bf16_wgmma"),
 # rows, two warpgroups of WG_ROWS each, and walks key tiles of BK[hd] keys
 BQ, WG_ROWS = 128, 64
 BK = {64: 128, 128: 128, 256: 64}
+# the fp32 kernel's tiles (flash_attention.cu): a block owns F32_BQ query
+# rows, a row group (one warp; two at hd 256) F32_WARP_ROWS of them, and
+# walks key tiles of F32_BK[hd] keys
+F32_BQ, F32_WARP_ROWS = 64, 16
+F32_BK = {64: 64, 128: 32, 256: 32}
 SKIP, FULL, MASKED = 0, 1, 2
 # the bf16 entry point's own error codes, negative (CUDA's are positive)
 _ENCODER_MISSING, _ENCODE_FAILED = -1, -1000
@@ -84,22 +94,24 @@ def _entry(route: str):
 
 
 def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
-    """The (b, h, s) element strides the bf16 kernel's TMA maps take for the
-    4-D view `t` (hd contiguous), or None when TMA cannot read the view as
-    it lies and the wrapper must copy it: a base that is not 16-byte
-    aligned, or a stride of a dimension longer than 1 that is not a
-    positive multiple of 8 elements (16 bytes). A dimension of size 1 is
-    never stepped over, so an illegal stride there is replaced by the
-    view's extent."""
+    """The (b, h, s) element strides the kernels' 16-byte loads take for
+    the 4-D view `t` (hd contiguous): the bf16 kernel's TMA maps, the fp32
+    kernel's cp.async. None when they cannot read the view as it lies and
+    the wrapper must copy it: a base that is not 16-byte aligned, or a
+    stride of a dimension longer than 1 that is not a positive multiple of
+    16 bytes (8 bf16 or 4 fp32 elements). A dimension of size 1 is never
+    stepped over, so an illegal stride there is replaced by the view's
+    extent."""
     if t.stride(-1) != 1 or t.data_ptr() % 16:
         return None
     sizes, strides = t.shape[:3], list(t.stride()[:3])
-    legal = lambda s: 0 < s < 2 ** 39 and s % 8 == 0
+    unit = 16 // t.element_size()
+    legal = lambda s: 0 < s < 2 ** 39 and s % unit == 0
     if not all(legal(s) for n, s in zip(sizes, strides) if n > 1):
         return None
     extent = max([t.shape[-1]] + [n * s for n, s in zip(sizes, strides)
                                   if n > 1])
-    extent = -(-extent // 8) * 8
+    extent = -(-extent // unit) * unit
     return tuple(s if n > 1 or legal(s) else extent
                  for n, s in zip(sizes, strides))
 
@@ -112,7 +124,9 @@ def tile_kinds(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
     products are skipped), FULL (every pair of a real row visible: no mask),
     MASKED (the mask applies). Rows past Sq are not real. A block loads the
     key tiles from its first non-SKIP one to its last at bq = BQ; each
-    warpgroup classifies them at bq = WG_ROWS."""
+    warpgroup classifies them at bq = WG_ROWS. flash_attention.cu (fp32)
+    computes the same at its own tiles: blocks of F32_BQ rows, row groups
+    of F32_WARP_ROWS, key tiles of F32_BK[hd]."""
     nq, nk = -(-Sq // bq), -(-Sk // bk)
     out = np.full((nq, nk), SKIP, np.int8)
     for qt in range(nq):
@@ -130,8 +144,69 @@ def tile_kinds(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
     return out
 
 
-def _rows_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flash_attention.cu's operand split as the tensor cores read it: hi =
+    x with its low 13 bits cleared, lo = x - hi (exact), itself read as
+    TF32 (its low 13 bits dropped)."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """a @ b in 3xTF32 as (hi·hi', lo·hi' + hi·lo'), each product of two
+    TF32 values exact in fp32; the sums in torch's order, not the mma's."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh, al @ bh + ah @ bl
+
+
+def flash_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0, softcap: float = 0.0,
+                 q_offset: int = 0) -> torch.Tensor:
+    """flash_attention.cu's arithmetic in plain torch, for the CPU tests:
+    q (B, H, Sq, hd), k/v (B, KV, Sk, hd) -> (B, H, Sq, hd) fp32. Key tiles
+    of F32_BK[hd]; per tile S = hi·hi' + (lo·hi' + hi·lo') in 3xTF32, the
+    softcap, the mask, the online softmax in the log2 domain (m, l, alpha),
+    P split the same way and O = O·alpha + P·V from a zero tile; o = O / l,
+    0 where l = 0. It visits every tile (the kernel skips those its rows
+    cannot see: there alpha is 1 and P is 0)."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    bk = F32_BK[hd]
+    qg = q.float().reshape(B, KV, H // KV, Sq, hd)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    log2e = 1.4426950408889634
+    scale = 1.0 / math.sqrt(hd)
+    cs = 1.0 if softcap > 0 else scale * log2e
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+    m = torch.full((B, KV, H // KV, Sq, 1), -math.inf, device=dev)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qg)
+    for k0 in range(0, Sk, bk):
+        kt, vt = kf[..., k0:k0 + bk, :], vf[..., k0:k0 + bk, :]
+        big, cross = _mm3(qg, kt.transpose(-1, -2))
+        x = big + cross
+        if softcap > 0:
+            x = softcap * log2e * torch.tanh(x * (scale / softcap))
+        kpos = torch.arange(k0, k0 + kt.shape[-2], device=dev)[None, :]
+        ok = torch.ones((Sq, kt.shape[-2]), dtype=torch.bool, device=dev)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        x = torch.where(ok, x, -math.inf)
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        sub = torch.where(mx == -math.inf, 0.0, mx * cs)
+        alpha = torch.exp2(m * cs - sub)
+        p = torch.exp2(x * cs - sub)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        big, cross = _mm3(p, vt)
+        o = o * alpha + (big + cross)
+        m = mx
+    out = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    return out.reshape(B, H, Sq, hd)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -165,27 +240,22 @@ def launch_on_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      stream: int, *, causal: bool = True, window: int = 0,
                      softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """The host side of ``flash_attention_cuda`` on an explicit stream:
-    checks, the route by dtype, the copies TMA needs, the output, the C
-    call. It takes the tensors' device as given (the tests drive it on the
+    checks, the route by dtype, the copies the 16-byte loads need, the
+    output, the C call. It takes the tensors' device as given (the tests drive it on the
     CPU with the C entry points replaced)."""
     _check(q, k, v)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    if q.dtype == torch.bfloat16:
-        route = BF16_ROUTE
-        qkv, in_strides = [], []
-        for t in (q, k, v):
+    route = BF16_ROUTE if q.dtype == torch.bfloat16 else F32_ROUTE
+    qkv, in_strides = [], []
+    for t in (q, k, v):
+        st = tma_strides(t)
+        if st is None:                  # an explicit copy, never a view
+            t = t.clone(memory_format=torch.contiguous_format)
             st = tma_strides(t)
-            if st is None:                  # an explicit copy, never a view
-                t = t.clone(memory_format=torch.contiguous_format)
-                st = tma_strides(t)
-            qkv.append(t)
-            in_strides.append(st)
-        q, k, v = qkv
-    else:
-        route = F32_ROUTE
-        q, k, v = (_rows_contiguous(t) for t in (q, k, v))
-        in_strides = [t.stride()[:3] for t in (q, k, v)]
+        qkv.append(t)
+        in_strides.append(st)
+    q, k, v = qkv
     out = torch.empty_like(q)       # q's layout: the model's when q is a view
     if B == 0 or Sq == 0:
         return out

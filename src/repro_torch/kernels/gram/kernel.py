@@ -9,8 +9,9 @@ masked inside the kernel (no padded copy). It takes CUDA tensors only;
 
 ``plan`` is the launch's shape, chosen on the host from (B, r, m) and
 mirrored in pure Python so the CPU tests can check it: which tiles run,
-how r is split, the cluster size. ``tf32_round`` and ``gram_3xtf32`` are
-the kernel's arithmetic in plain torch, for those tests.
+how r is split, the cluster size. ``gram_3xtf32`` is the kernel's
+arithmetic in plain torch, for those tests (``tf32_round``, from the
+port's shared ``kernels/tf32.py``, is its operand split).
 
 ``launches`` counts the kernel's launches in this process, so a run can
 show that its main path went through the kernel.
@@ -26,6 +27,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.tf32 import tf32_round
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
 
@@ -85,13 +87,6 @@ def slices(r: int, split: int) -> List[Tuple[int, int]]:
     nk = -(-r // BK)
     return [(min(q * nk // split * BK, r), min((q + 1) * nk // split * BK, r))
             for q in range(split)]
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> TF32 (10 mantissa bits), to nearest, ties away from zero:
-    cvt.rna.tf32.f32 with the low 13 bits cleared."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def gram_3xtf32(a: torch.Tensor) -> torch.Tensor:

@@ -432,27 +432,50 @@ def rwkv6_channelmix(p: Params, x: torch.Tensor, x_prev: torch.Tensor
 # the chunk-level linear recurrence s_i = a_i ⊙ s_{i-1} + b_i
 # --------------------------------------------------------------------------
 
+PSCAN_MIN_BLOCK = 16     # fewest steps a block of the closed form takes
+
+
 def linear_recurrence_pscan(a: torch.Tensor, b: torch.Tensor,
                             extra_dims: int = 1) -> torch.Tensor:
     """Inclusive prefix states of s_i = a_i ⊙ s_{i-1} + b_i along axis 1.
 
     a: (G, n, K) in (0, 1]; b: (G, n, K, *extra). Returns inclusive states
     like b. The reference runs a log-depth associative scan, which torch
-    lacks; this is its closed form, s_i = Σ_{j<=i} exp(C_i - C_j) b_j with
-    C = cumsum(log a), one batched product. Every exponent is <= 0, so no
-    term overflows; C is summed in float64, so the differences C_i - C_j
-    keep fp32 precision however long the sequence. Its memory is
-    O(G·n²·K): fine at the chunk counts of training (n = S / 16).
+    lacks; this is a blocked closed form. Within blocks of L steps,
+    s_i = Σ_{j<=i} exp(C_i - C_j) b_j with C = cumsum(log a) from the
+    block's start, one batched product; across blocks a loop carries the
+    block-end state, s = exp(C) ⊙ s_prev + local. Every exponent is <= 0,
+    so no term overflows; C is summed in float64, so the differences keep
+    fp32 precision however strong the decay. L = clamp(X, 16, n) for X the
+    product of the extra dims: the (G, n, L, K) weights hold no more
+    elements than the (G, n, K, X) states returned (for X >= 16), so memory
+    is linear in n, as the reference's scan is.
     """
     G, n, K = a.shape
-    C = torch.cumsum(torch.log(a).double(), dim=1)               # (G, n, K)
-    expo = (C[:, :, None, :] - C[:, None, :, :]).to(a.dtype)     # (G,i,j,K)
-    causal = torch.tril(torch.ones((n, n), dtype=torch.bool,
-                                   device=a.device))[None, :, :, None]
-    weight = torch.exp(torch.where(causal, expo, -torch.inf))
     bf = b.reshape(G, n, K, -1)
-    incl = torch.einsum("gijk,gjkx->gikx", weight, bf)
-    return incl.reshape(b.shape)
+    X = bf.shape[-1]
+    L = max(1, min(n, max(X, PSCAN_MIN_BLOCK)))
+    nb = -(-n // L)
+    pad = nb * L - n
+    if pad:             # a = 1, b = 0 past n: the states just carry on
+        a = F.pad(a, (0, 0, 0, pad), value=1.0)
+        bf = F.pad(bf, (0, 0, 0, 0, 0, pad))
+    C = torch.cumsum(torch.log(a).double().reshape(G, nb, L, K), dim=2)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=a.device))[None, None, :, :, None]
+    weight = torch.exp(torch.where(
+        causal, (C[:, :, :, None] - C[:, :, None]).to(a.dtype), -torch.inf))
+    local = torch.einsum("gbijk,gbjkx->gbikx", weight,
+                         bf.reshape(G, nb, L, K, X))
+    del weight
+    # the state entering each block: a loop over nb = n / L block ends
+    decay = torch.exp(C).to(a.dtype)                       # (G, nb, L, K)
+    carry = [torch.zeros_like(local[:, 0, 0])]
+    for blk in range(nb - 1):
+        carry.append(decay[:, blk, -1, :, None] * carry[-1]
+                     + local[:, blk, -1])
+    incl = local + decay[..., None] * torch.stack(carry, 1)[:, :, None]
+    return incl.reshape(G, nb * L, *b.shape[2:])[:, :n]
 
 
 def _prev_states(a: torch.Tensor, b: torch.Tensor, extra_dims: int = 1):

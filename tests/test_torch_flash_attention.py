@@ -7,8 +7,10 @@ reference runs its Pallas kernel in interpret mode, over the grid of its
 own tests (tests/test_kernels.py). Bars are the reference's: 2e-5 (atol and
 rtol) in fp32, 2e-2 in bf16. Ragged lengths, which the Pallas wrapper does
 not take (it asserts divisibility), are held against the reference's
-``backend="ref"``. The CUDA kernel is held against the plain version on the
-card by the `cuda`-marked tests.
+``backend="ref"``. The fp32 kernel's 3xTF32 arithmetic
+(``kernel.flash_3xtf32``) is held against the same at the fp32 bar. The
+CUDA kernels are held against the plain version on the card by the
+`cuda`-marked tests.
 """
 import numpy as np
 import pytest
@@ -113,6 +115,61 @@ def test_plain_matches_reference_ragged(jref, B, Sq, Sk, H, KV, hd, q_offset,
     np.testing.assert_allclose(t, j, atol=_tol(dtype), rtol=_tol(dtype))
 
 
+def _emulated(arrays, **kw):
+    """The fp32 kernel's arithmetic (kernel.flash_3xtf32) in model layout."""
+    q, k, v = (torch.tensor(a).transpose(1, 2) for a in arrays)
+    return fa_kernel.flash_3xtf32(q, k, v, **kw).transpose(1, 2).numpy()
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,q_offset,window,softcap", [
+    (1, 4, 2, 128, 128, 64, 0, 0, 0.0),       # GQA, two key tiles of 64
+    (2, 4, 1, 128, 128, 128, 0, 48, 0.0),     # MQA, a window across tiles
+    (1, 4, 2, 64, 64, 256, 0, 0, 50.0),       # gemma2's hd and softcap
+    (1, 8, 4, 96, 96, 256, 0, 40, 50.0),      # ... with its window
+    (1, 4, 4, 64, 256, 64, 192, 0, 0.0),      # q at the tail (q_offset)
+    (2, 4, 2, 64, 64, 128, 0, 0, 30.0),       # softcap 30 at hd 128
+])
+def test_3xtf32_emulation_matches_pallas_interpret(jref, B, H, KV, Sq, Sk,
+                                                   hd, q_offset, window,
+                                                   softcap):
+    """The fp32 kernel's 3xTF32 arithmetic against the Pallas kernel in
+    interpret mode, at the reference's fp32 bar (2e-5 abs + rel)."""
+    jnp, jops = jref
+    arrays = _qkv(11, B, Sq, Sk, H, KV, hd)
+    kw = dict(q_offset=q_offset, window=window, softcap=softcap)
+    out_j = jops.flash_attention(*(jnp.asarray(a) for a in arrays),
+                                 backend="interpret", **kw)
+    np.testing.assert_allclose(_emulated(arrays, **kw), np.asarray(out_j),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,q_offset,window,softcap,causal", [
+    (2, 100, 100, 4, 2, 64, 0, 0, 0.0, True),     # not a tile multiple
+    (1, 37, 100, 4, 1, 64, 63, 0, 0.0, True),     # MQA, q at the tail
+    (2, 77, 77, 2, 2, 128, 0, 20, 50.0, True),    # window and softcap
+    (1, 45, 70, 8, 4, 256, 25, 30, 50.0, True),   # hd 256, all masks
+    (1, 50, 83, 4, 2, 256, 0, 0, 0.0, False),     # not causal: every key
+    (1, 20, 20, 4, 2, 64, -8, 0, 0.0, True),      # rows that see no key
+])
+def test_3xtf32_emulation_matches_reference_ragged(jref, B, Sq, Sk, H, KV,
+                                                   hd, q_offset, window,
+                                                   softcap, causal):
+    """Ragged lengths (which the Pallas wrapper does not take) against the
+    reference's plain version, at the fp32 bar."""
+    jnp, jops = jref
+    arrays = _qkv(12, B, Sq, Sk, H, KV, hd)
+    kw = dict(q_offset=q_offset, window=window, softcap=softcap,
+              causal=causal)
+    out_j = np.asarray(jops.flash_attention(
+        *(jnp.asarray(a) for a in arrays), backend="ref", **kw))
+    got = _emulated(arrays, **kw)
+    if q_offset < 0:   # the jnp oracle averages v where no key is visible;
+        # the kernels give 0 (the Pallas kernel's l == 0 guard)
+        assert np.all(got[:, :-q_offset] == 0)
+        got, out_j = got[:, -q_offset:], out_j[:, -q_offset:]
+    np.testing.assert_allclose(got, out_j, atol=2e-5, rtol=2e-5)
+
+
 def test_row_without_visible_key_gives_zero():
     """Rows at negative positions see no key under the causal mask: 0, as
     the Pallas kernel's l == 0 guard gives (the jnp oracle averages v)."""
@@ -182,20 +239,20 @@ def _model_views(dtype, B=2, Sq=40, Sk=56, H=4, KV=2, hd=64):
                                         q_offset=16)),
     (torch.bfloat16, "bf16_wgmma", dict(causal=False, window=0, softcap=0.0,
                                         q_offset=-8)),
-    (torch.float32, "f32_simt", dict(causal=True, window=0, softcap=0.0,
-                                     q_offset=0)),
-    (torch.float32, "f32_simt", dict(causal=True, window=24, softcap=50.0,
-                                     q_offset=16)),
+    (torch.float32, "f32_3xtf32", dict(causal=True, window=0, softcap=0.0,
+                                       q_offset=0)),
+    (torch.float32, "f32_3xtf32", dict(causal=True, window=24, softcap=50.0,
+                                       q_offset=16)),
 ])
 def test_route_by_dtype(monkeypatch, dtype, route, kw):
-    """bf16 reaches the wgmma entry point and fp32 the SIMT one, with the
+    """bf16 reaches the wgmma entry point and fp32 the 3xTF32 one, with the
     shape, the model layout's strides (no copy), the output's strides and
     the flags; each route counts its own launches."""
     calls = _entry_spy(monkeypatch)
     q, k, v = _model_views(dtype)
     before = dict(fa_kernel.route_launches)
     out = fa_kernel.launch_on_stream(q, k, v, 7, **kw)
-    other = ({"bf16_wgmma", "f32_simt"} - {route}).pop()
+    other = ({"bf16_wgmma", "f32_3xtf32"} - {route}).pop()
     assert len(calls[route]) == 1 and calls[other] == []
     args = calls[route][0]
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -285,7 +342,7 @@ def test_tma_predicate(monkeypatch, case, copies):
     assert q_strides == list(fa_kernel.tma_strides(fresh) if copies else st)
     assert args[0] % 16 == 0
     fa_kernel.launch_on_stream(q.float(), k.float(), v.float(), 0)
-    assert len(calls["f32_simt"]) == 1
+    assert len(calls["f32_3xtf32"]) == 1
 
 
 def _visible_mask(Sq, Sk, causal, window, q_offset):
@@ -301,7 +358,7 @@ def _visible_mask(Sq, Sk, causal, window, q_offset):
 
 
 @pytest.mark.parametrize("bq,bk", [(64, 128), (64, 64), (128, 128),
-                                   (128, 64)])
+                                   (128, 64), (16, 64), (16, 32), (64, 32)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_tile_kinds_cover_the_mask(bq, bk, causal):
     """Exhaustively over ragged shapes, windows that cut tiles and negative
@@ -350,6 +407,60 @@ def test_warpgroup_tiles_lie_in_the_block_range():
                 assert not (need & (blocks[g // 2] == fa_kernel.SKIP)).any()
 
 
+def test_warp_tiles_lie_in_the_block_range_f32():
+    """The fp32 kernel's warps (F32_WARP_ROWS rows) never need a key tile
+    their block (F32_BQ rows) does not load, at each head dim's F32_BK."""
+    bq, wr = fa_kernel.F32_BQ, fa_kernel.F32_WARP_ROWS
+    for hd, bk in fa_kernel.F32_BK.items():
+        for Sq, Sk, window, q_offset, causal in [
+                (300, 300, 0, 0, True), (333, 700, 100, 0, True),
+                (256, 2048, 0, 1792, True), (96, 96, 0, -40, True),
+                (1, 1, 0, 0, True), (5, 5, 0, 0, True),
+                (130, 195, 70, 65, False)]:
+            blocks = fa_kernel.tile_kinds(Sq, Sk, bq, bk, causal, window,
+                                          q_offset)
+            warps = fa_kernel.tile_kinds(Sq, Sk, wr, bk, causal, window,
+                                         q_offset)
+            for w, row in enumerate(warps):
+                need = row != fa_kernel.SKIP
+                assert not (need & (blocks[w * wr // bq]
+                                    == fa_kernel.SKIP)).any()
+
+
+@pytest.mark.parametrize("case,copies", [
+    ("model layout view", False),
+    ("head slice of a wider tensor", False),
+    ("storage offset 2 (8 bytes)", True),
+    ("row stride 66", True),
+    ("size-1 dims with odd strides", False),
+])
+def test_f32_route_copies_what_cp_async_cannot_read(monkeypatch, case,
+                                                    copies):
+    """The fp32 kernel loads 16-byte pieces (cp.async): a view whose base
+    or strides are not 16-byte multiples (4 fp32 elements) is copied first,
+    any other view is passed as it lies, with its own strides."""
+    B, H, S, hd = 2, 4, 24, 64
+    t = {
+        "model layout view": lambda: torch.zeros(B, S, H, hd).transpose(1, 2),
+        "head slice of a wider tensor": lambda: torch.zeros(
+            B, S, H + 1, hd).transpose(1, 2)[:, :H],
+        "storage offset 2 (8 bytes)": lambda: torch.zeros(
+            B * H * S * hd + 8)[2:2 + B * H * S * hd].view(B, H, S, hd),
+        "row stride 66": lambda: torch.zeros(B, H, S, 66)[..., :hd],
+        "size-1 dims with odd strides": lambda: torch.zeros(
+            1, 1, S, hd).as_strided((1, 1, S, hd), (3, 5, hd, 1)),
+    }[case]()
+    assert (fa_kernel.tma_strides(t) is None) == copies
+    calls = _entry_spy(monkeypatch)
+    k = v = torch.zeros(t.shape[0], 1, S, hd)
+    fa_kernel.launch_on_stream(t, k, v, 0)
+    args = calls["f32_3xtf32"][0]
+    assert (args[0] == t.data_ptr()) != copies
+    assert args[0] % 16 == 0
+    assert all(s % 4 == 0 for n, s in zip(t.shape, list(args[10])[:3])
+               if n > 1)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -380,6 +491,9 @@ def cuda_device():
     (1, 300, 300, 4, 2, 64, 0, 100, 0.0, False),    # window cuts inside tiles
     (1, 333, 500, 4, 2, 128, 0, 0, 0.0, False),     # ragged, Sk > Sq
     (1, 130, 195, 4, 4, 256, 65, 70, 50.0, False),  # hd 256, window, softcap
+    # a B = 1 prompt of a few tokens: one warp's m16 tile, mostly empty
+    (1, 5, 5, 8, 4, 256, 0, 0, 50.0, True),
+    (1, 3, 3, 32, 8, 64, 0, 0, 0.0, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_cuda(cuda_device, B, Sq, Sk, H, KV, hd,
@@ -431,3 +545,29 @@ def test_bf16_kernel_views_on_cuda(cuda_device, case):
     assert fa_kernel.route_launches["bf16_wgmma"] == before + 1
     ref = tops.flash_attention(q, k, v, backend="ref")
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,q_offset,window,softcap", [
+    (1, 700, 700, 8, 4, 256, 0, 300, 50.0),     # gemma2 local, cut down
+    (2, 333, 333, 8, 2, 64, 0, 0, 0.0),
+    (1, 64, 400, 4, 1, 128, 336, 0, 0.0),
+])
+def test_f32_kernel_is_repeatable_and_emulated_on_cuda(cuda_device, B, Sq,
+                                                        Sk, H, KV, hd,
+                                                        q_offset, window,
+                                                        softcap):
+    """The fp32 kernel gives the same bits on every call (a fixed order of
+    sums, no atomics), and agrees with its 3xTF32 emulation on the same
+    CUDA inputs at the fp32 bar."""
+    q, k, v = (torch.tensor(a, device=cuda_device)
+               for a in _qkv(13, B, Sq, Sk, H, KV, hd))
+    kw = dict(q_offset=q_offset, window=window, softcap=softcap)
+    before = fa_kernel.route_launches["f32_3xtf32"]
+    outs = [tops.flash_attention(q, k, v, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fa_kernel.route_launches["f32_3xtf32"] == before + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    emu = fa_kernel.flash_3xtf32(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), **kw).transpose(1, 2)
+    torch.testing.assert_close(outs[0], emu, atol=2e-5, rtol=2e-5)
