@@ -20,8 +20,10 @@ paths through the port's public entry points:
 - the rwkv6-3b training path at full width and depth with random weights
   from a seed, under TrainConfig's defaults (params fp32, compute bf16,
   AdamW fp32, remat on): TokenStream batches of 2 x 1024 tokens through
-  make_train_step for a few steps: the WKV6 kernel's path, its loss held
-  against the plain WKV6 path of the same model in fp32.
+  make_train_step for a few steps: the WKV6 kernels' path (the chunked
+  forward, twice a layer under remat, and its gradient kernel, once a
+  layer), its loss held against the plain WKV6 path of the same model in
+  fp32.
 
 Each phase prints one JSON line. Host-bound rows (the fit's step 4, decode,
 the server, the train step) give min / median / max over repeats. The line
@@ -118,6 +120,7 @@ RWKV = ARCHS["rwkv6-3b"]
 WKV_SHAPES = [("rwkv6-3b train", 2, 1024, 40, 64, 64),
               ("ragged K", 1, 96, 3, 24, 40)]
 WKV_ATOL, WKV_RTOL = 2e-4, 2e-3   # tests/test_kernels.py, wkv6 cases
+WKV_GRAD_TOL = 1e-5      # gradient kernel vs plain gradients, relative, each
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
 GRAD_LAYERS = 2          # depth of the full-width model-level gradient check
 
@@ -212,8 +215,9 @@ def host_call_us(fn, calls: int) -> float:
 
 def profile_device(fn):
     """Run fn() once under torch.profiler: (host wall s, device s per
-    kernel name, kernels run). Only the device-side events are summed: a
-    CPU op's self device time repeats that of the kernels it launched."""
+    kernel name, kernels run, runs per kernel name). Only the device-side
+    events are summed: a CPU op's self device time repeats that of the
+    kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -222,30 +226,17 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel, kernels = {}, 0
+    per_kernel, runs, kernels = {}, {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
             continue
         per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
                              + e.self_device_time_total / 1e6)
+        runs[e.key] = runs.get(e.key, 0) + e.count
         if not e.key.startswith(("Memcpy", "Memset")):
             kernels += e.count
     check(sum(per_kernel.values()) > 0, "the profiler saw no device time")
-    return wall, per_kernel, kernels
-
-
-def profile_range_device_s(fn, name: str) -> float:
-    """Run fn() once under torch.profiler: the device seconds of the
-    kernels launched inside every ``record_function(name)`` range."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.key == name) / 1e6
-    check(total > 0, f"the profiler saw no device time in {name!r}")
-    return total
+    return wall, per_kernel, kernels, runs
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -258,7 +249,7 @@ def phase_device():
     print(smi, flush=True)
     t0 = time.perf_counter()
     sources = [gram_kernel.SOURCE, fa_kernel.SOURCE, fa_kernel.WGMMA_SOURCE,
-               wkv_kernel.SOURCE]
+               wkv_kernel.SOURCE, wkv_kernel.BWD_SOURCE]
     build.load_libraries(sources)
     build_s = time.perf_counter() - t0
     ptxas = {src.name: [l.strip() for l in
@@ -420,7 +411,7 @@ def phase_step4_profile(model):
     the device's busy share of step 4 (kernel time over wall time; the
     profiler's own overhead inflates the wall, so the share is a floor)."""
     loss = lambda p, x, y: mlp.mlp_per_example_loss(p, x, y, model.task)
-    wall_s, per_kernel, kernels = profile_device(lambda: run_federated(
+    wall_s, per_kernel, kernels, _ = profile_device(lambda: run_federated(
         loss, model.params_, model.setup_.fed_silos(), opt=adamw(model.lr),
         rounds=1, local_epochs=model.local_epochs,
         batch_size=model.batch_size, seed=model.seed + 2,
@@ -527,13 +518,13 @@ def library_call(q, k, v, Sq, Sk, window, softcap, q_offset):
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
 
-def flash_bounds(peak, dtype, flops, nbytes):
-    """The least time for the attention's work: q, k, v read and o written
-    once, 4·hd flops per visible pair done at the dtype's fastest route:
-    bf16 on the tensor cores; fp32-accurate as FFMA or as three TF32
-    products on the tensor cores, whichever is faster (as gram_bounds).
-    Returns (bound ms, "operations" or "bytes", the route that bounds the
-    operations, the FFMA-only bound ms or None)."""
+def work_bounds(peak, dtype, flops, nbytes):
+    """The least time for a function's work, `nbytes` moved and `flops`
+    done at the dtype's fastest route: bf16 on the tensor cores;
+    fp32-accurate as FFMA or as three TF32 products on the tensor cores,
+    whichever is faster (as gram_bounds). Returns (bound ms, "operations"
+    or "bytes", the route that bounds the operations, the FFMA-only bound
+    ms or None)."""
     t_bytes = nbytes / peak["bytes"] * 1e3
     if dtype == torch.bfloat16:
         t_ops, kind, t_ffma = flops / peak["bf16_flops"] * 1e3, "bf16", None
@@ -582,7 +573,7 @@ def phase_flash_check(dev, peak):
             pairs = visible_pairs(Sq, Sk, True, window, q_offset)
             flops = 4.0 * hd * B * H * pairs
             nbytes = float(q.element_size() * (2 * q.numel() + 2 * k.numel()))
-            bound_ms, bound_by, bound_kind, ffma_bound_ms = flash_bounds(
+            bound_ms, bound_by, bound_kind, ffma_bound_ms = work_bounds(
                 peak, dtype, flops, nbytes)
             reps = 3 if flops > 1e11 else 10
             kernel = lambda: fa_ops.flash_attention(q, k, v, **kw)
@@ -687,7 +678,8 @@ def phase_llm_prefill(dev):
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "bf16 prefill logits")
     prefill_s = wall_s(lambda: step(p16, {"tokens": tokens}))
-    _, per_kernel, _ = profile_device(lambda: step(p16, {"tokens": tokens}))
+    _, per_kernel, _, _ = profile_device(
+        lambda: step(p16, {"tokens": tokens}))
     dev_s = sum(per_kernel.values())
     share = sum(t for k, t in per_kernel.items()
                 if "flash_fwd_kernel_wgmma" in k) / dev_s
@@ -759,7 +751,7 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
         check(bool(torch.isfinite(out).all()), "decode logits")
     decode_s = statistics.median(decode_runs)
     check(fa_kernel.launches() == 0, "decode runs no flash kernel")
-    prof_wall, per_kernel, kernels = profile_device(decode_run)
+    prof_wall, per_kernel, kernels, _ = profile_device(decode_run)
     busy_s = sum(per_kernel.values())
 
     # BatchedServer at full width, as serve.py:main runs it
@@ -894,23 +886,26 @@ def phase_wkv6_check(dev, peak):
             errs[backend] = (float(diff.max()), float(
                 (diff / (WKV_ATOL + WKV_RTOL * ref.abs())).max()))
         ms = time_ms(lambda: wkv_ops.wkv6(*args), 20)
+        device_ms = graph_ms(lambda: wkv_ops.wkv6(*args), 20)
         plain_ms = time_ms(lambda: wkv_ops.wkv6(*args, backend="chunked"), 20)
         scan_ms = time_ms(lambda: wkv_ops.wkv6(*args, backend="scan"), 2)
         # per (token, head): 4KV flops; r, k, log_w, v read, o written once
         pairs = B * S * H
         flops = 4.0 * K * V * pairs
         nbytes = 4.0 * ((3 * K + 2 * V) * pairs + H * K)
-        t_ops = flops / peak["fp32_flops"] * 1e3
-        t_bytes = nbytes / peak["bytes"] * 1e3
+        bound_ms, bound_by, bound_kind, ffma_bound_ms = work_bounds(
+            peak, torch.float32, flops, nbytes)
         row = {"phase": "wkv6_check", "shape": name,
                "B_S_H_K_V": [B, S, H, K, V],
                "max_abs_err_vs_scan": errs["scan"][0],
                "max_abs_err_vs_chunked": errs["chunked"][0],
                "err_over_bar": max(e[1] for e in errs.values()),
-               "ms": ms, "plain_ms": plain_ms, "scan_ms": scan_ms,
-               "library_ms": None, "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "bytes_bound_ms": t_bytes, "operations_bound_ms": t_ops,
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+               "scan_ms": scan_ms,
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_kind": bound_kind,
+               "ffma_bound_ms": ffma_bound_ms,
+               "bytes_bound_ms": nbytes / peak["bytes"] * 1e3,
                "gbytes_per_s": nbytes / ms / 1e6}
         emit(row)
         rows.append(row)
@@ -918,30 +913,51 @@ def phase_wkv6_check(dev, peak):
               f"wkv6 kernel vs plain at {name}: {errs}")
         del args, out
 
-    # gradients: WKV6Function (kernel forward, chunked backward) against
-    # autograd of the plain chunked form, at the train shape ...
+    # gradients at the train shape: the gradient kernel against the closed
+    # form (ref.wkv6_grad) and against autograd of the plain chunked form,
+    # each gradient; then WKV6Function (both kernels, through autograd)
     _, B, S, H, K, V = WKV_SHAPES[0]
     args = wkv6_inputs(gen, B, S, H, K, V, dev)
     cot = torch.randn((B, S, H, V), generator=gen, device=dev)
-    ga = [t.clone().requires_grad_() for t in args]
+    before = wkv_kernel.grad_launches
+    got = wkv_kernel.wkv6_grad_cuda(*args, cot)
+    torch.cuda.synchronize()
+    check(wkv_kernel.grad_launches == before + 1,
+          "wkv6_grad_cuda launched its kernel other than once")
+    closed = wkv_ops.ref.wkv6_grad(*args, cot)
     gb = [t.clone().requires_grad_() for t in args]
+    (wkv_ops.ref.wkv6_chunked(*gb) * cot).sum().backward()
+    names = ("r", "k", "v", "log_w", "u")
+    vs_closed = {n: rel(g.cpu(), w.cpu()) for n, g, w in zip(names, got, closed)}
+    vs_autograd = {n: rel(g.cpu(), b.grad.cpu())
+                   for n, g, b in zip(names, got, gb)}
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, closed))
+    ga = [t.clone().requires_grad_() for t in args]
     (wkv_ops.wkv6(*ga) * cot).sum().backward()
-    (wkv_ops.wkv6(*gb, backend="chunked") * cot).sum().backward()
     op_grad_rel = max(rel(a.grad.cpu(), b.grad.cpu()) for a, b in zip(ga, gb))
-    # what WKV6Function.backward runs once per layer of a train step
+    bwd_ms = time_ms(lambda: wkv_kernel.wkv6_grad_cuda(*args, cot), 20)
+    bwd_device_ms = graph_ms(lambda: wkv_kernel.wkv6_grad_cuda(*args, cot),
+                             10)
+    # the plain recompute: autograd of the chunked form, what
+    # WKV6Function.backward ran once per layer before the gradient kernel
     recompute_ms = time_ms(lambda: torch.autograd.grad(
         wkv_ops.ref.wkv6_chunked(*gb), gb, cot), 10)
+    rows[0]["backward_ms"] = bwd_ms
+    rows[0]["backward_device_ms"] = bwd_device_ms
     rows[0]["backward_recompute_ms"] = recompute_ms
+    rows[0]["backward_max_abs_err"] = max_abs
     # the gradient's bound: r, k, v, log_w, dO and u read once, dr, dk, dv,
-    # dw and du written once; 12 K V flops per (token, head): the state
-    # recomputed (2 K V), dS carried back (2), and dr, dk, dv, dw (2 each)
+    # dw and du written once; 10 K V flops per (token, head): the state
+    # recomputed, dS carried back, and dr°, dk°, dv (2 K V each; dlog_w's
+    # identity and the u terms need no K V product)
     pairs = B * S * H
-    bwd_flops = 12.0 * K * V * pairs
+    bwd_flops = 10.0 * K * V * pairs
     bwd_bytes = 4.0 * ((3 * K + 2 * V) * pairs + (3 * K + V) * pairs
                        + 2 * H * K)
-    bwd_ops_ms = bwd_flops / peak["fp32_flops"] * 1e3
-    bwd_bytes_ms = bwd_bytes / peak["bytes"] * 1e3
-    del args, ga, gb, cot
+    (rows[0]["backward_bound_ms"], rows[0]["backward_bound_by"],
+     rows[0]["backward_bound_kind"], rows[0]["backward_ffma_bound_ms"]) = (
+        work_bounds(peak, torch.float32, bwd_flops, bwd_bytes))
+    del args, ga, gb, cot, got, closed
     # ... and of a full-width rwkv6-3b at reduced depth, fp32, kernel path
     # against plain path
     cfg = RWKV.with_overrides(num_layers=GRAD_LAYERS)
@@ -953,17 +969,26 @@ def phase_wkv6_check(dev, peak):
     lp, gp = loss_grads(cfg, params, b, False)
     model_grad_rel = leaf_rel_max(gk, gp)
     row = {"phase": "wkv6_grad_check", "op_shape": list(WKV_SHAPES[0][1:]),
-           "op_grad_rel_max": op_grad_rel,
-           "backward_recompute_ms": recompute_ms,
+           "kernel_vs_closed_form_rel": vs_closed,
+           "kernel_vs_chunked_autograd_rel": vs_autograd,
+           "max_abs_err_vs_closed_form": max_abs,
+           "function_grad_rel_max": op_grad_rel,
+           "bwd_ms": bwd_ms, "device_ms": bwd_device_ms,
+           "plain_ms": recompute_ms, "library_ms": None,
            "backward_flops": bwd_flops, "backward_bytes": bwd_bytes,
-           "backward_bound_ms": max(bwd_ops_ms, bwd_bytes_ms),
-           "backward_bound_by": ("operations" if bwd_ops_ms >= bwd_bytes_ms
-                                 else "bytes"),
+           "backward_bound_ms": rows[0]["backward_bound_ms"],
+           "backward_bound_by": rows[0]["backward_bound_by"],
+           "backward_bound_kind": rows[0]["backward_bound_kind"],
+           "backward_ffma_bound_ms": rows[0]["backward_ffma_bound_ms"],
            "model_layers": GRAD_LAYERS,
            "model_tokens": TRAIN_S, "model_loss_rel": rel(lk, lp),
            "model_grad_rel_max": model_grad_rel}
     emit(row)
-    check(op_grad_rel <= LM_TOL, f"WKV6Function gradients: {op_grad_rel}")
+    check(max(vs_closed.values()) <= WKV_GRAD_TOL
+          and max(vs_autograd.values()) <= WKV_GRAD_TOL,
+          f"wkv6 gradient kernel vs plain: {vs_closed} {vs_autograd}")
+    check(op_grad_rel <= WKV_GRAD_TOL,
+          f"WKV6Function gradients: {op_grad_rel}")
     check(model_grad_rel <= LM_TOL and rel(lk, lp) <= LM_TOL,
           f"rwkv6 kernel vs plain path gradients: {model_grad_rel}")
     del params, gk, gp
@@ -989,29 +1014,46 @@ def phase_rwkv6_train(dev, wkv_main):
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated() / 1e9
     stream = TokenStream(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
-    losses, step_s, per_step = [], [], []
+    losses, step_s, per_step, per_step_bwd = [], [], [], []
+    # the plain chunked form must not run on this path: count its calls
+    plain_calls = []
+    plain_chunked = wkv_ops.ref.wkv6_chunked
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain_chunked(*a, **kw)
     torch.cuda.reset_peak_memory_stats()
     wkv_kernel.reset_launches()
-    for i in range(TRAIN_STEPS):
-        before = wkv_kernel.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, m = step(params, opt_state, stream.batch(i))
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        per_step.append(wkv_kernel.launches - before)
+    wkv_ops.ref.wkv6_chunked = counted
+    try:
+        for i in range(TRAIN_STEPS):
+            before = (wkv_kernel.launches, wkv_kernel.grad_launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, stream.batch(i))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(wkv_kernel.launches - before[0])
+            per_step_bwd.append(wkv_kernel.grad_launches - before[1])
+    finally:
+        wkv_ops.ref.wkv6_chunked = plain_chunked
     launches = wkv_kernel.launches
+    bwd_launches = wkv_kernel.grad_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady_s = statistics.median(step_s[1:])
 
-    wall, per_kernel, kernels = profile_device(
+    wall, per_kernel, kernels, runs = profile_device(
         lambda: step(params, opt_state, stream.batch(TRAIN_STEPS)))
     dev_s = sum(per_kernel.values())
-    wkv_s = sum(t for k, t in per_kernel.items() if "wkv6_fwd_kernel" in k)
-    recompute_s = profile_range_device_s(
-        lambda: step(params, opt_state, stream.batch(TRAIN_STEPS + 1)),
-        wkv_ops.BACKWARD_RANGE)
+    wkv_s = sum(t for k, t in per_kernel.items()
+                if "wkv6_chunked_fwd_kernel" in k)
+    bwd_s = sum(t for k, t in per_kernel.items()   # key and value kernels
+                if "wkv6_chunked_bwd_" in k)
+    # a gradient call launches two kernels: each once a layer in that step
+    bwd_runs = {kind: sum(n for k, n in runs.items()
+                          if f"wkv6_chunked_bwd_{kind}_kernel" in k)
+                for kind in ("key", "value")}
     del opt_state
     torch.cuda.empty_cache()
 
@@ -1051,27 +1093,36 @@ def phase_rwkv6_train(dev, wkv_main):
            "train_tokens_per_s": TRAIN_B * TRAIN_S / steady_s,
            "max_memory_allocated_gb": peak_gb,
            "wkv6_launches": launches, "wkv6_launches_per_step": per_step,
+           "wkv6_bwd_launches": bwd_launches,
+           "wkv6_bwd_launches_per_step": per_step_bwd,
+           "wkv6_bwd_kernel_runs_in_profiled_step": bwd_runs,
+           "plain_chunked_calls": len(plain_calls),
            "profiled_step_wall_s": wall, "profiled_device_s": dev_s,
            "device_busy_share": dev_s / wall, "kernels_per_step": kernels,
-           "wkv6_share_of_device_time": wkv_s / dev_s,
-           "backward_recompute_device_s": recompute_s,
-           "backward_recompute_share_of_device_time": recompute_s / dev_s,
-           # the same two shares from CUDA-event times of the kernel and of
-           # the recompute at the train shape (phase wkv6_check), over the
-           # unprofiled step
-           "wkv6_event_share_of_step": per_step[-1] * wkv_main["ms"] / 1e3
-                                       / steady_s,
-           "backward_recompute_event_share_of_step":
-               cfg.num_layers * wkv_main["backward_recompute_ms"] / 1e3
-               / steady_s,
+           "wkv6_fwd_device_s": wkv_s, "wkv6_bwd_device_s": bwd_s,
+           "wkv6_fwd_share_of_device_time": wkv_s / dev_s,
+           "wkv6_bwd_share_of_device_time": bwd_s / dev_s,
+           # the same two shares from CUDA-event times of the two kernels at
+           # the train shape (phase wkv6_check), over the unprofiled step
+           "wkv6_fwd_event_share_of_step": per_step[-1] * wkv_main["ms"]
+                                           / 1e3 / steady_s,
+           "wkv6_bwd_event_share_of_step": per_step_bwd[-1]
+                                           * wkv_main["backward_ms"] / 1e3
+                                           / steady_s,
            "fp32_b1": {"loss_kernel_path": lk, "loss_plain_path": lp,
                        "rel": rel(lk, lp), "hidden_rel": hidden_rel,
                        "wkv6_launches": fp32_launches,
                        "kernel_path_s": kernel_s, "plain_path_s": plain_s}}
     emit(row)
     check(all(np.isfinite(losses)), f"rwkv6 train losses {losses}")
-    check(all(n >= cfg.num_layers for n in per_step),
-          f"wkv6 launches per train step {per_step}")
+    check(all(n == 2 * cfg.num_layers for n in per_step)
+          and all(n == cfg.num_layers for n in per_step_bwd),
+          f"wkv6 launches per train step: forward {per_step}, gradient "
+          f"{per_step_bwd}")
+    check(all(n == cfg.num_layers for n in bwd_runs.values()),
+          f"wkv6 gradient kernels in the profiled step: {bwd_runs}")
+    check(not plain_calls,
+          f"the plain chunked form ran {len(plain_calls)} times in training")
     check(fp32_launches == cfg.num_layers,
           f"wkv6 launches in the fp32 loss: {fp32_launches}")
     check(row["fp32_b1"]["rel"] <= LM_TOL and hidden_rel <= LM_TOL,
@@ -1121,10 +1172,12 @@ def main() -> int:
 
     def per_gemma(key):
         return sum(n_f32 // 2 * r[key] for r in f32_main)
-    # the WKV6 kernel's main path: the rwkv6-3b train run, every launch at
-    # the first WKV_SHAPES row (no PyTorch call computes WKV6: no library)
+    # the WKV6 kernels' main path: the rwkv6-3b train run, every launch at
+    # the first WKV_SHAPES row (no PyTorch call computes WKV6 or its
+    # gradient: no library)
     wkv_main = wkv_rows[0]
     n_wkv = train_row["wkv6_launches"]
+    n_bwd = train_row["wkv6_bwd_launches"]
     emit({"kernels": [{
         "name": "gram_batched_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
@@ -1172,9 +1225,23 @@ def main() -> int:
         "launches": n_wkv, "max_abs_err": max(
             wkv_main["max_abs_err_vs_scan"],
             wkv_main["max_abs_err_vs_chunked"]),
-        "ms": n_wkv * wkv_main["ms"], "plain_ms": n_wkv * wkv_main["plain_ms"],
+        "ms": n_wkv * wkv_main["ms"],
+        "device_ms": n_wkv * wkv_main["device_ms"],
+        "plain_ms": n_wkv * wkv_main["plain_ms"],
         "bound_ms": n_wkv * wkv_main["bound_ms"],
-        "bound_by": wkv_main["bound_by"], "library_ms": None}]})
+        "bound_by": wkv_main["bound_by"], "library_ms": None}, {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+        "replaces": "none: the reference has no backward kernel; it takes "
+                    "jax.grad of src/repro/kernels/rwkv6/ref.py::"
+                    "wkv6_chunked",
+        "launches": n_bwd, "max_abs_err": wkv_main["backward_max_abs_err"],
+        "ms": n_bwd * wkv_main["backward_ms"],
+        "device_ms": n_bwd * wkv_main["backward_device_ms"],
+        # the plain version: autograd of the chunked form, recomputed
+        "plain_ms": n_bwd * wkv_main["backward_recompute_ms"],
+        "bound_ms": n_bwd * wkv_main["backward_bound_ms"],
+        "bound_by": wkv_main["backward_bound_by"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

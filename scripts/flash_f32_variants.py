@@ -3,9 +3,9 @@
     python3 scripts/flash_f32_variants.py
 
 Builds src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu as
-committed and as a few variants of it (text substitutions, written under
-the ignored kernels/build/variants/), then runs each through the port's
-wrapper at the five flash shapes of chip_smoke.py in fp32: the median time
+committed and as a few variants of it (text substitutions, built by
+kernel_variants.py under the ignored kernels/build/variants/), then runs
+each through the port's wrapper at the five flash shapes of chip_smoke.py in fp32: the median time
 per call by CUDA events (variants in turns, twice: a, b, ..., b, a), and
 the largest error against the plain version with its share of the
 reference's 2e-5 fp32 bar. Prints the card's name and power limit, each
@@ -22,21 +22,14 @@ Variants:
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+import torch
 
-import torch  # noqa: E402
-
-from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
-from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from kernel_variants import card, build_all, in_turns, variant_sources
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.flash_attention import ops
 
 S_PRODUCTS = """        mma_tf32(sx[j], al, bh);
         mma_tf32(sx[j], ah, bl);
@@ -63,65 +56,19 @@ SHAPES = [
 TOL = 2e-5
 
 
-def variant_sources():
-    base = fa.SOURCE.read_text()
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    paths = {}
-    for name, subs in VARIANTS.items():
-        src = base
-        for old, new in subs:
-            if old not in src:
-                raise SystemExit(f"variant {name}: the source no longer has "
-                                 f"{old.splitlines()[0]!r}")
-            src = src.replace(old, new)
-        paths[name] = out_dir / f"flash_attention_{name}.cu"
-        paths[name].write_text(src)
-    return paths
-
-
-def bind(lib):
-    fn = lib.flash_attention_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                   ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.c_float,
-                   i, p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def time_ms(fn, reps: int) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for s, e in ev:
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_f32_variants: needs a CUDA device", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    paths = variant_sources()
-    fns = {name: bind(lib) for name, lib in
-           zip(paths, build.load_libraries(list(paths.values())))}
-    for name, path in paths.items():
-        log = build.build_log.get(path.name, "")
-        print(json.dumps({"variant": name, "ptxas": [
-            l.strip() for l in log.splitlines()
-            if "registers" in l or "spill" in l]}), flush=True)
+    print(card(), flush=True)
+    libs = build_all(variant_sources(fa.SOURCE, VARIANTS), {})
+    fns = {name: fa.bind(lib, fa.F32_ROUTE) for name, lib in libs.items()}
+
+    def use(name):
+        fa._fns[fa.F32_ROUTE] = fns[name]     # the wrapper's entry point
 
     def run(name, q, k, v, kw):
-        fa._fns[fa.F32_ROUTE] = fns[name]     # the wrapper's entry point
+        use(name)
         return ops.flash_attention(q, k, v, **kw)
 
     dev = torch.device("cuda")
@@ -141,10 +88,9 @@ def main() -> int:
                 err[n] = float(diff.max())
                 over[n] = float((diff / (TOL + TOL * ref.abs())).max())
             del ref
-            reps = 5 if hd == 256 else 20
-            ms = {n: [] for n in names}
-            for n in names + names[::-1]:
-                ms[n].append(time_ms(lambda: run(n, q, k, v, kw), reps))
+            ms = in_turns(names, use,
+                          lambda: ops.flash_attention(q, k, v, **kw),
+                          5 if hd == 256 else 20)
             print(json.dumps({"shape": name, "ms": ms, "max_abs_err": err,
                               "err_over_bar": over}), flush=True)
             del q, k, v

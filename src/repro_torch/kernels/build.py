@@ -4,7 +4,8 @@ Each source under ``csrc/`` exposes a plain C function and is compiled
 alone into a shared library (``nvcc -shared``), which ``ctypes`` loads: no
 PyTorch headers, so a build takes seconds, and several sources build in
 parallel, one nvcc each. The library's file name carries
-a hash of the source and the flags, so an edited source rebuilds; the
+a hash of the source, the ``*.cuh`` headers beside it and the flags, so an
+edited source or header rebuilds; the
 libraries land in ``kernels/build/``, which git ignores. A missing ``nvcc``
 or a failed build raises: there is no fallback on the CUDA path.
 """
@@ -42,8 +43,12 @@ def find_nvcc() -> str:
 
 
 def _lib_path(source: Path) -> Path:
+    # the headers beside a source are part of what it builds from
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 

@@ -76,20 +76,24 @@ def reset_launches() -> None:
         route_launches[r] = 0
 
 
-def _entry(route: str):
-    """The C entry point of `route`, built and bound once per process. Both
+def bind(lib: ctypes.CDLL, route: str):
+    """The C entry point of `route` in `lib` with its argument types. Both
     take (q, k, v, o, B, H, KV, Sq, Sk, hd, strides, causal, window,
     softcap, q_offset, stream)."""
+    fn = getattr(lib, _ENTRY[route][1])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                   ctypes.POINTER(ctypes.c_longlong), i, i,
+                   ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _entry(route: str):
+    """The C entry point of `route`, built and bound once per process."""
     fn = _fns.get(route)
     if fn is None:
-        source, name = _ENTRY[route]
-        fn = getattr(load_library(source), name)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), i, i,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _fns[route] = fn
+        fn = _fns[route] = bind(load_library(_ENTRY[route][0]), route)
     return fn
 
 

@@ -2,48 +2,44 @@
 
 Counterpart of ``repro.kernels.rwkv6.ops.wkv6``: the same name, arguments
 and layout. backend="auto" dispatches on the tensors' device: CUDA -> the
-hand-written kernel through ``WKV6Function`` (which raises rather than fall
-back), CPU -> the chunked plain form (``ref.wkv6_chunked``), as the
-reference's "auto" takes its chunked form off the TPU. "chunked" and "scan"
-force the plain versions, to hold the kernel against them.
+hand-written kernels through ``WKV6Function`` (forward and gradient; each
+raises rather than fall back), CPU -> the chunked plain form
+(``ref.wkv6_chunked``), as the reference's "auto" takes its chunked form off
+the TPU. "chunked" and "scan" force the plain versions, to hold the kernels
+against them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.rwkv6 import ref
-from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+from repro_torch.kernels.rwkv6.kernel import wkv6_cuda, wkv6_grad_cuda
 
 _BACKENDS = ("auto", "chunked", "scan")
-BACKWARD_RANGE = "wkv6_backward_recompute"
 
 
 class WKV6Function(torch.autograd.Function):
-    """The kernel in the forward pass; the gradient of the plain chunked
-    form in the backward.
+    """The forward kernel in the forward pass, the gradient kernels in the
+    backward: one call each (the gradient's launches its two kernels).
 
     The reference has no backward kernel for WKV6 (its ``wkv6_pallas`` has
-    no ``custom_vjp``, and ``jax.grad`` through it fails), so the backward
-    recomputes ``ref.wkv6_chunked`` from the saved fp32 inputs under
-    autograd and returns its gradients: the same function, differentiated
-    exactly. A hand-written backward kernel is listed in ROADMAP.md,
-    Queue 2.
+    no ``custom_vjp``, and ``jax.grad`` through it fails; it trains on the
+    plain chunked form). ``wkv6_grad_cuda`` computes the gradient of the
+    same function from the saved fp32 inputs, recomputing the states
+    (``ref.wkv6_grad`` is its plain version).
     """
 
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, chunk):
         ctx.chunk = chunk
         ctx.save_for_backward(r, k, v, log_w, u)
-        return wkv6_cuda(r, k, v, log_w, u)
+        return wkv6_cuda(r, k, v, log_w, u, chunk=chunk)
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        # the range names this work in a profiler trace; free when off
-        with torch.enable_grad(), \
-                torch.profiler.record_function(BACKWARD_RANGE):
-            out = ref.wkv6_chunked(*inputs, chunk=ctx.chunk)
-            grads = torch.autograd.grad(out, inputs, grad_out)
+        if grad_out.stride(-1) != 1:
+            grad_out = grad_out.contiguous()
+        grads = wkv6_grad_cuda(*ctx.saved_tensors, grad_out, chunk=ctx.chunk)
         return (*grads, None)
 
 
@@ -52,7 +48,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          backend: str = "auto") -> torch.Tensor:
     """r/k/log_w: (B, S, H, K); v: (B, S, H, V); u: (H, K) -> (B, S, H, V)
     fp32. On the kernel route S must be a multiple of min(chunk, S), as the
-    reference's ``wkv6_pallas`` asserts."""
+    reference's ``wkv6_pallas`` asserts, and chunk at most 16."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown wkv6 backend {backend!r}; choose from "
                          f"{_BACKENDS}")

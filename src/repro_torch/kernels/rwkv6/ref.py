@@ -1,7 +1,9 @@
 """Plain PyTorch WKV6 recurrence (RWKV-6 "Finch" time mix): what the CPU
-runs, the model's path with ``use_kernels=False``, the gradient of the
-kernel route (``ops.WKV6Function``), and the versions the CUDA kernel is
-held against on the card. Counterpart of ``repro.kernels.rwkv6.ref``.
+runs, the model's path with ``use_kernels=False``, and the versions the
+CUDA kernels (``csrc/wkv6.cu`` forward, ``csrc/wkv6_bwd.cu`` gradient) are
+held against on the card. Counterpart of ``repro.kernels.rwkv6.ref``;
+``wkv6_grad`` has none there (the reference takes ``jax.grad`` of
+``wkv6_chunked``).
 
 Recurrence (per batch, head; K = key dim, V = value dim):
 
@@ -104,3 +106,65 @@ def wkv6_chunked(r, k, v, log_w, u, *, chunk: int = 16,
         # last padded position is the state after the true last token
         return out, final_state.reshape(B, H, K, V)
     return out
+
+
+def wkv6_grad(r, k, v, log_w, u, dO):
+    """The gradient of ``wkv6_scan``'s output against the cotangent dO, in
+    closed form: (dr, dk, dv, dlog_w, du), fp32, shaped as the inputs. The
+    plain version of the backward kernel (``csrc/wkv6_bwd.cu``).
+
+    Per batch and head, with S_{t-1} the state before step t, w = e^{log_w}
+    and G_t = dL/dS_t, carried back from G_{S-1} = 0:
+
+        G_{t-1}  = diag(w_t) G_t + r_t dO_t^T
+        dr_t     = S_{t-1} dO_t + u ⊙ k_t (v_t · dO_t)
+        dk_t     = G_t v_t      + u ⊙ r_t (v_t · dO_t)
+        dv_t     = G_t^T k_t    + (Σ_k r_t u k_t) dO_t
+        du       = Σ_{b,t} r_t ⊙ k_t (v_t · dO_t)
+        dlog_w_t = Σ_{s>t} r_s ⊙ dr°_s − Σ_{s≥t} k_s ⊙ dk°_s
+
+    where dr°_s = S_{s-1} dO_s and dk°_s = G_s v_s are the terms without u.
+    The last line holds because a_t = Σ_v G_t ⊙ S_t obeys a_{t-1} = a_t +
+    r_t ⊙ dr°_t − k_t ⊙ dk°_t (a_{S-1} = 0), and dlog_w_t = Σ_v G_t ⊙ (w_t ⊙
+    S_{t-1}) = a_t − k_t ⊙ dk°_t. Summed over the whole sequence in fp32
+    that recurrence cancels (its terms are large where a is small, at early
+    steps, and its error grows with the sequence), so a is formed directly
+    every MAX_CHUNK steps from the state saved there, and carried back only
+    in between. One step at a time, forward for dr° and the saved
+    states, backward for G.
+    """
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, lw, do = (t.float() for t in (r, k, v, log_w, dO))
+    uf = u.float()
+    w = torch.exp(lw)
+    state = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+    dr0 = torch.empty_like(rf)
+    saved = {}                                   # S_t at the anchors
+    for t in range(S):
+        dr0[:, t] = torch.einsum("bhkv,bhv->bhk", state, do[:, t])
+        state = (w[:, t, :, :, None] * state
+                 + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        if t % MAX_CHUNK == MAX_CHUNK - 1 and t < S - 1:
+            saved[t] = state
+    G = torch.zeros_like(state)
+    dk0 = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    dlog_w = torch.empty_like(lw)
+    a = torch.zeros_like(rf[:, 0])                                # a_{S-1}
+    for t in range(S - 1, -1, -1):
+        dk0[:, t] = torch.einsum("bhkv,bhv->bhk", G, vf[:, t])
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", G, kf[:, t])
+        if t in saved:
+            a = (G * saved.pop(t)).sum(-1)
+        elif t < S - 1:
+            a = a + rf[:, t + 1] * dr0[:, t + 1] - kf[:, t + 1] * dk0[:, t + 1]
+        dlog_w[:, t] = a - kf[:, t] * dk0[:, t]
+        G = (w[:, t, :, :, None] * G
+             + rf[:, t, :, :, None] * do[:, t, :, None, :])
+    vdo = (vf * do).sum(-1, keepdim=True)                       # (B,S,H,1)
+    dr = dr0 + uf * kf * vdo
+    dk = dk0 + uf * rf * vdo
+    dv = dv + (rf * uf * kf).sum(-1, keepdim=True) * do
+    du = (rf * kf * vdo).sum((0, 1))
+    return dr, dk, dv, dlog_w, du

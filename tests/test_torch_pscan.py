@@ -68,11 +68,15 @@ def test_prev_states_match_reference_scan(jref, S):
 
 
 def test_wkv6_function_gradients_match_jax_grad_at_1024(jref, monkeypatch):
-    """WKV6Function's plain backward (the chunked form under autograd, the
-    recurrence above inside it) at S = 1024 against jax.grad of the
-    reference's chunked form; the forward's kernel stands in as the scan."""
+    """WKV6Function's backward at S = 1024, the plain versions standing in
+    for both kernel entries (the scan for the forward, the closed-form
+    gradient for the gradient kernel), against jax.grad of the reference's
+    chunked form (whose chunk recurrence is the one above)."""
     jax, jnp, _, jrwkv = jref
-    monkeypatch.setattr(tops, "wkv6_cuda", tops.ref.wkv6_scan)
+    monkeypatch.setattr(tops, "wkv6_cuda", lambda *a, chunk:
+                        tops.ref.wkv6_scan(*a))
+    monkeypatch.setattr(tops, "wkv6_grad_cuda", lambda *a, chunk:
+                        tops.ref.wkv6_grad(*a))
     B, S, H, K, V = 1, 1024, 2, 16, 16
     rng = np.random.default_rng(21)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)

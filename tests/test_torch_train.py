@@ -409,11 +409,13 @@ def test_rwkv6_train_step_kernel_path_on_cuda(cuda_device, model):
         step, opt = tsteps.make_train_step(tc, tt, use_kernels=use_kernels,
                                            device=cuda_device)
         p = lm_params_from_numpy(lm_params_to_numpy(pt), device=cuda_device)
-        before = wkv_kernel.launches
+        before = (wkv_kernel.launches, wkv_kernel.grad_launches)
         p, _, m = step(p, opt.init(p), b)
-        # one launch per layer forward and one per remat re-forward
-        assert wkv_kernel.launches - before == (
-            2 * tc.num_layers if use_kernels else 0)
+        # forward: one launch per layer and one per remat re-forward;
+        # gradient: one call (two kernels) per layer
+        n = tc.num_layers if use_kernels else 0
+        assert (wkv_kernel.launches - before[0],
+                wkv_kernel.grad_launches - before[1]) == (2 * n, n)
         out[use_kernels] = (float(m["loss"]), lm_params_to_numpy(p))
     assert abs(out[True][0] - out[False][0]) <= TOL * abs(out[False][0])
     for a, b_ in zip(tree_leaves(out[True][1]), tree_leaves(out[False][1])):

@@ -5,8 +5,10 @@ On the CPU the port's plain versions (``wkv6_scan``, ``wkv6_chunked``) are
 held against the reference's scan, its chunked form and its Pallas kernel
 in interpret mode, over the grid of the reference's own tests
 (tests/test_kernels.py), at its bar: atol 2e-4, rtol 2e-3. Final states and
-gradients are held tighter. The CUDA kernel is held against the plain
-versions on the card by the `cuda`-marked tests.
+gradients are held tighter; the closed-form gradient ``wkv6_grad`` (the
+plain version of the gradient kernel) is held against ``jax.grad`` of the
+reference's chunked form and scan at 1e-5. The CUDA kernels are held
+against the plain versions on the card by the `cuda`-marked tests.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from repro_torch.kernels.rwkv6 import ref as tref
 from _jax_oracle import oracle_on_cpu  # noqa: E402
 
 ATOL, RTOL = 2e-4, 2e-3          # tests/test_kernels.py, wkv6 cases
+GRAD_TOL = 1e-5                  # relative Frobenius, per gradient
+GRADS = ("r", "k", "v", "log_w", "u")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,6 +108,33 @@ def test_chunked_gradients_match_jax_grad(jref):
         _gap(f"wkv6 chunked grad {name}", t.grad.numpy(), g, 1e-4)
 
 
+@pytest.mark.parametrize("S,K,V", [
+    (S, K, V) for S in (32, 64, 80) for K, V in ((16, 16), (16, 24), (64, 64))
+] + [(1024, 16, 16), (1024, 64, 64)])
+def test_closed_form_gradient_matches_jax_grad(jref, S, K, V):
+    """ref.wkv6_grad against jax.grad of the reference's chunked form and of
+    its scan, all five gradients."""
+    jax, jnp, _, jrefm = jref
+    B = 1 if S == 1024 else 2
+    arrays = _inputs(S * 7 + K + V, B, S, 2, K, V)
+    cot = np.random.default_rng(S + 1).standard_normal(
+        (B, S, 2, V)).astype(np.float32)
+    ja = [jnp.asarray(a) for a in arrays]
+    want = {
+        "chunked": jax.grad(lambda *a: jnp.sum(
+            jrefm.wkv6_chunked(*a, chunk=16) * cot),
+            argnums=tuple(range(5)))(*ja),
+        "scan": jax.grad(lambda *a: jnp.sum(jrefm.wkv6_scan(*a) * cot),
+                         argnums=tuple(range(5)))(*ja)}
+    got = tref.wkv6_grad(*(torch.tensor(a) for a in arrays),
+                         torch.tensor(cot))
+    for rname, grads in want.items():
+        for name, g, w in zip(GRADS, got, grads):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            _gap(f"wkv6_grad {name} vs jax.grad of {rname} S={S} K={K} "
+                 f"V={V}", g.numpy(), w, GRAD_TOL)
+
+
 def test_recurrence_closed_form_matches_loop():
     """The closed form of the chunk recurrence against the loop it stands
     for, at a strong decay over many chunks (large |cumsum log a|)."""
@@ -138,19 +169,57 @@ def test_dispatch_and_validation():
         tops.wkv6(*meta)
 
 
+def stub_kernels(monkeypatch, calls=None):
+    """Stand the plain versions in for both kernel entries of ops.py, on
+    the CPU: the scan for the forward, wkv6_grad for the gradient."""
+    def fwd(r, k, v, log_w, u, *, chunk):
+        return tref.wkv6_scan(r, k, v, log_w, u)
+
+    def grad(r, k, v, log_w, u, dO, *, chunk):
+        if calls is not None:
+            calls.append(chunk)
+        return tref.wkv6_grad(r, k, v, log_w, u, dO)
+    monkeypatch.setattr(tops, "wkv6_cuda", fwd)
+    monkeypatch.setattr(tops, "wkv6_grad_cuda", grad)
+
+
 def test_function_backward_is_the_chunked_gradient(monkeypatch):
-    """WKV6Function's backward, run on the CPU with the scan standing in
-    for the kernel's forward: the gradients of the plain chunked form."""
-    monkeypatch.setattr(tops, "wkv6_cuda", tref.wkv6_scan)
+    """WKV6Function's backward, run on the CPU with the plain versions
+    standing in for the kernels: exactly the gradient entry's output, once
+    a call, and the gradients of the plain chunked form."""
+    calls = []
+    stub_kernels(monkeypatch, calls)
     arrays = _inputs(16, 2, 48, 2, 16, 24)
     cot = torch.tensor(np.random.default_rng(17).standard_normal(
         (2, 48, 2, 24)).astype(np.float32))
     ta = [torch.tensor(a, requires_grad=True) for a in arrays]
     tb = [torch.tensor(a, requires_grad=True) for a in arrays]
     (tops.WKV6Function.apply(*ta, 16) * cot).sum().backward()
+    assert calls == [16]
+    want = tref.wkv6_grad(*(torch.tensor(a) for a in arrays), cot)
+    for a, w in zip(ta, want):
+        torch.testing.assert_close(a.grad, w, rtol=0, atol=0)
     (tref.wkv6_chunked(*tb, chunk=16) * cot).sum().backward()
-    for a, b in zip(ta, tb):
-        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=0)
+    for name, a, b in zip(GRADS, ta, tb):
+        _gap(f"WKV6Function grad {name} vs chunked autograd",
+             a.grad.numpy(), b.grad.numpy(), GRAD_TOL)
+
+
+def test_grad_wrapper_refuses_cpu_dtype_and_layout():
+    arrays = [torch.tensor(a) for a in _inputs(24, 1, 32, 2, 16, 16)]
+    dO = torch.ones((1, 32, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_kernel.wkv6_grad_cuda(*arrays, dO)
+    with pytest.raises(TypeError, match="float32"):
+        wkv_kernel.wkv6_grad_cuda(*arrays, dO.double())
+    with pytest.raises(TypeError, match="float32"):
+        wkv_kernel.wkv6_grad_cuda(arrays[0].bfloat16(), *arrays[1:], dO)
+    strided = torch.ones((1, 32, 2, 32))[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.wkv6_grad_cuda(*arrays, strided)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.wkv6_cuda(*arrays[:3], arrays[3].transpose(2, 3),
+                             arrays[4])
 
 
 @pytest.fixture
@@ -161,11 +230,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+KERNEL_SHAPES = [(2, 64, 3, 16, 24), (1, 80, 2, 64, 64), (2, 256, 4, 32, 32),
+                 (1, 48, 1, 24, 16), (1, 1024, 2, 64, 64),
+                 (1, 96, 3, 24, 40)]   # chip_smoke.py's ragged-K shape
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,K,V", [
-    (2, 64, 3, 16, 24), (1, 80, 2, 64, 64), (2, 256, 4, 32, 32),
-    (1, 48, 1, 24, 16), (1, 1024, 2, 64, 64),
-])
+@pytest.mark.parametrize("B,S,H,K,V", KERNEL_SHAPES)
 def test_kernel_matches_plain_on_cuda(cuda_device, B, S, H, K, V):
     ta = [torch.tensor(a, device=cuda_device)
           for a in _inputs(18, B, S, H, K, V)]
@@ -177,6 +248,72 @@ def test_kernel_matches_plain_on_cuda(cuda_device, B, S, H, K, V):
     for backend in ("scan", "chunked"):
         torch.testing.assert_close(out, tops.wkv6(*ta, backend=backend),
                                    atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,V", KERNEL_SHAPES)
+def test_grad_kernel_matches_closed_form_on_cuda(cuda_device, B, S, H, K, V):
+    ta = [torch.tensor(a, device=cuda_device)
+          for a in _inputs(25, B, S, H, K, V)]
+    dO = torch.tensor(np.random.default_rng(26).standard_normal(
+        (B, S, H, V)).astype(np.float32), device=cuda_device)
+    before = wkv_kernel.grad_launches
+    got = wkv_kernel.wkv6_grad_cuda(*ta, dO)
+    torch.cuda.synchronize()
+    assert wkv_kernel.grad_launches == before + 1
+    want = tref.wkv6_grad(*ta, dO)
+    for name, g, w in zip(GRADS, got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _gap(f"wkv6 gradient kernel {name} vs wkv6_grad at "
+             f"{(B, S, H, K, V)}", g.cpu().numpy(), w.cpu().numpy(),
+             GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 8])
+def test_function_launches_once_each_way_on_cuda(cuda_device, chunk):
+    """One forward launch and one gradient call (its two kernels) per call,
+    at the model's chunk and a shorter one, on views with a non-contiguous
+    head stride."""
+    big = [torch.tensor(a, device=cuda_device, requires_grad=True)
+           for a in _inputs(27, 2, 64, 4, 32, 32)]
+    ta = [t[:, :, ::2] if t.dim() == 4 else t[::2] for t in big]
+    gb = [t.detach().clone().requires_grad_() for t in ta]
+    cot = torch.randn((2, 64, 2, 32), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(0))
+    f0, b0 = wkv_kernel.launches, wkv_kernel.grad_launches
+    out = tops.wkv6(*ta, chunk=chunk)
+    assert (wkv_kernel.launches - f0, wkv_kernel.grad_launches - b0) == (1, 0)
+    (out * cot).sum().backward()
+    assert (wkv_kernel.launches - f0, wkv_kernel.grad_launches - b0) == (1, 1)
+    (tref.wkv6_chunked(*gb, chunk=chunk) * cot).sum().backward()
+    for name, a, b in zip(GRADS, big, gb):
+        got = a.grad[:, :, ::2] if a.dim() == 4 else a.grad[::2]
+        _gap(f"wkv6 kernels' gradient {name} vs chunked autograd, chunk "
+             f"{chunk}", got.cpu().numpy(), b.grad.cpu().numpy(), GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,V", [(2, 64, 40, 64, 64),
+                                       (1, 32, 300, 24, 40)])
+def test_kernels_fill_several_waves_deterministically_on_cuda(
+        cuda_device, B, S, H, K, V):
+    """More blocks than the card holds at once: both kernels agree with the
+    plain versions and give the same bits on a second call."""
+    ta = [torch.tensor(a, device=cuda_device)
+          for a in _inputs(28, B, S, H, K, V)]
+    dO = torch.tensor(np.random.default_rng(29).standard_normal(
+        (B, S, H, V)).astype(np.float32), device=cuda_device)
+    out = wkv_kernel.wkv6_cuda(*ta)
+    assert torch.equal(out, wkv_kernel.wkv6_cuda(*ta))
+    torch.testing.assert_close(out, tref.wkv6_chunked(*ta), atol=ATOL,
+                               rtol=RTOL)
+    got = wkv_kernel.wkv6_grad_cuda(*ta, dO)
+    again = wkv_kernel.wkv6_grad_cuda(*ta, dO)
+    for name, g, a, w in zip(GRADS, got, again, tref.wkv6_grad(*ta, dO)):
+        assert torch.equal(g, a), name
+        _gap(f"wkv6 gradient kernel {name} at {(B, S, H, K, V)}",
+             g.cpu().numpy(), w.cpu().numpy(), GRAD_TOL)
 
 
 @pytest.mark.cuda
