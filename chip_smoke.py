@@ -10,7 +10,12 @@ paths through the port's public entry points:
 - FedDCL Algorithm 1 end to end at the width of the paper's mnist model
   (784 -> m̃ = m̂ = 50, MLP 50-500-100-10; Experiment II layout d = 5 groups
   x c = 4 users x 100 samples, 2000 anchor rows, 20 rounds x 4 local
-  epochs, batch 32): the Gram kernel's path;
+  epochs, batch 32) with FedDCL's defaults: the Gram kernel's path, and
+  step 4 on the scan engine through the plan cache, one CUDA-graph replay
+  a round (its first call split into build, warm-up, capture and
+  replays; a second tenant in the same bucket, which captures nothing).
+  The same fit on the host engine beside it, and the two engines held
+  together on the card;
 - the LLM serving path at full width and depth with random weights from a
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
   BatchedServer, and gemma2-2b prefill (bf16 and fp32, 8192 tokens, past
@@ -25,7 +30,7 @@ paths through the port's public entry points:
   layer), its loss held against the plain WKV6 path of the same model in
   fp32.
 
-Each phase prints one JSON line. Host-bound rows (the fit's step 4, decode,
+Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step) give min / median / max over repeats. The line
 before the last lists every kernel with its launches on the main path,
 error and times; the last line is {"ok": true, "device": {...}}. Any failure exits non-zero before it.
@@ -40,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -58,7 +64,9 @@ import torch  # noqa: E402
 from repro_torch.api import FedDCL  # noqa: E402
 from repro_torch.configs import ARCHS, InputShape, TrainConfig  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
-from repro_torch.core.federated import run_federated  # noqa: E402
+from repro_torch.core.federated import (clear_plan_cache,  # noqa: E402
+                                        padded_layout, plan_cache_stats,
+                                        round_perms, run_federated)
 from repro_torch.data.partition import split_iid  # noqa: E402
 from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
@@ -353,24 +361,45 @@ def mnist_exp2_layout(seed: int = 0):
     return Xs, Ys, Xte, Yte
 
 
-def phase_fit(dev, rounds: int = 20):
+FIT_ROUNDS = 20
+# rounds of each engine (cache off, one injected schedule) in scan_vs_host.
+# From round 3 on, AdamW amplifies fp32 rounding where |g| nears its eps
+# (the mnist-width loss falls below 0.04): after 4 rounds the host engine
+# on the card and on the CPU part by 2e-3, as the two engines on the card
+# do, while after 2 they stay within 5e-6 (scripts/fed_engine_gap.py)
+SCAN_VS_HOST_ROUNDS = 2
+ENGINE_TOL = 1e-4         # scan vs host, relative: the reference's engine bar
+
+
+def fit_model(dev, **kw):
+    """FedDCL at the mnist-width Experiment II configuration, with its
+    defaults (scan engine, plan cache) unless `kw` says otherwise."""
+    return FedDCL(m_tilde=M_TILDE, hidden=(500, 100), task="classification",
+                  rounds=FIT_ROUNDS, local_epochs=4, batch_size=32,
+                  anchor_r=ANCHOR_R, svd_backend="device", device=dev, **kw)
+
+
+def fit_layout(model):
+    return {"d": D, "c": C, "n_ij": N_IJ, "m": 784, "m_tilde": M_TILDE,
+            "anchor_r": ANCHOR_R, "mlp": [M_TILDE, 500, 100, 10],
+            "rounds": model.rounds, "local_epochs": model.local_epochs,
+            "batch_size": model.batch_size}
+
+
+def phase_fit(dev):
+    """The main path: FedDCL.fit with its defaults. Step 4 runs on the scan
+    engine through the process-wide plan cache: the first fit builds the
+    plan and captures one round in a CUDA graph, then replays it a round."""
     t0 = time.perf_counter()
     Xs, Ys, Xte, Yte = mnist_exp2_layout()
     data_s = time.perf_counter() - t0
-    # each round ends in a host sync (its loss), then calls eval_fn: the
-    # stamps give every round's wall time
-    stamps = []
-    model = FedDCL(m_tilde=M_TILDE, hidden=(500, 100), task="classification",
-                   rounds=rounds, local_epochs=4, batch_size=32,
-                   anchor_r=ANCHOR_R, svd_backend="device", engine="host",
-                   device=dev,
-                   eval_fn=lambda _: stamps.append(time.perf_counter()) or {})
+    clear_plan_cache()
+    model = fit_model(dev)
+    check(model.engine == "scan" and model.cache is True,
+          "FedDCL's defaults are not the scan engine with the plan cache")
     gram_kernel.reset_launches()
-    t0 = time.perf_counter()
     setup, res = model.fit(Xs, Ys)
     launches = gram_kernel.launches
-    round_s = np.diff([t0 + model.fit_seconds_["protocol"]] + stamps)
-    check(len(round_s) == rounds, f"{len(round_s)} round times of {rounds}")
     acc = model.score(Xte, Yte)
     # step 5: every user's integrated model t(X) = h(f(X) G); user (0,0)'s
     # must answer as the estimator's predict does
@@ -380,16 +409,15 @@ def phase_fit(dev, rounds: int = 20):
         models = protocol.finalize_user_models(setup, h)
         t00 = models[0][0](Xte[:64]).argmax(-1).cpu().numpy()
     trips = setup.comm.user_round_trips()
-    row = {"phase": "fit", "layout": {"d": D, "c": C, "n_ij": N_IJ,
-                                      "m": 784, "m_tilde": M_TILDE,
-                                      "anchor_r": ANCHOR_R,
-                                      "mlp": [M_TILDE, 500, 100, 10],
-                                      "rounds": rounds, "local_epochs": 4,
-                                      "batch_size": 32},
+    step4 = model.fit_seconds_["federated"]
+    parts = res.timings
+    row = {"phase": "fit", "engine": model.engine, "layout": fit_layout(model),
            "data_s": data_s, "steps_1_3_s": model.fit_seconds_["protocol"],
-           "step_4_s": model.fit_seconds_["federated"],
-           "step_4_round_s": spread(round_s),
-           "step_4_each_round_s": round_s.tolist(),
+           "step_4_s": step4,
+           # the first call of the fit's step 4, split: layout, upload and
+           # plan lookup ("build"), then the plan's run
+           "step_4_parts_s": {"build": step4 - sum(parts.values()), **parts},
+           "cache_stats": res.cache_stats,
            "final_loss": res.history[-1]["loss"], "test_accuracy": acc,
            "gram_launches": launches, "users": len(trips),
            "two_communications_per_user": all(v == 2 for v in trips.values())}
@@ -403,22 +431,162 @@ def phase_fit(dev, rounds: int = 20):
     check(launches == FIT_LAUNCHES,
           f"gram kernel launches in one fit: {launches} "
           f"(expected {FIT_LAUNCHES})")
+    stats = res.cache_stats
+    check(not stats["hit"] and stats["captures"] == 1
+          and stats["replays"] == model.rounds,
+          f"the first scan fit should capture once and replay a round: {stats}")
     return model, (Xs, Ys, Xte, Yte), row
 
 
+def phase_scan_timing(dev, model, fit_row):
+    """Where the scan engine's time goes: a replay per round (a separate
+    run whose per-round loss fetch, eval_chunk=1, syncs the card each
+    round, on a warm plan), a second tenant in the same bucket (a cache
+    hit, nothing captured), and one replayed round under the profiler."""
+    loss = partial(mlp.mlp_per_example_loss, task=model.task)
+    silos = model.setup_.fed_silos()
+    kw = dict(opt=model._opt, rounds=model.rounds,
+              local_epochs=model.local_epochs, batch_size=model.batch_size,
+              engine="scan", cache=True, device=dev,
+              loss_id=("mlp_per_example_loss", model.task),
+              opt_id=("adamw", model.lr))
+    stamps = []
+    ev = lambda _: stamps.append(time.perf_counter()) or {}
+    first = run_federated(loss, model.params_, silos, eval_fn=ev,
+                          eval_chunk=1, **kw)        # captures the chunk plan
+    stamps.clear()
+    t0 = time.perf_counter()
+    warm = run_federated(loss, model.params_, silos, eval_fn=ev,
+                         eval_chunk=1, **kw)
+    round_s = np.diff([t0] + stamps)
+    check(len(round_s) == model.rounds and warm.cache_stats["hit"],
+          f"timing run: {len(round_s)} rounds, {warm.cache_stats}")
+    # another tenant of the same bucket: the mnist stand-in drawn anew
+    Xs2, Ys2, _, _ = mnist_exp2_layout(seed=1)
+    model2 = fit_model(dev, seed=1)
+    before = plan_cache_stats()
+    _, res2 = model2.fit(Xs2, Ys2)
+    new_captures = res2.cache_stats["captures"] - before["captures"]
+    check(res2.cache_stats["hit"] and new_captures == 0,
+          f"second tenant: {res2.cache_stats} after {before}")
+    # one replayed round, profiled: a rounds=1 run on the warm chunk plan
+    wall_s, per_kernel, kernels, _ = profile_device(lambda: run_federated(
+        loss, model.params_, silos, eval_fn=lambda _: {}, eval_chunk=1,
+        **{**kw, "rounds": 1}))
+    busy_s = sum(per_kernel.values())
+    layout = padded_layout(silos, batch_size=model.batch_size, cache=True)
+    vsteps = model.local_epochs * layout.num_batches
+    row = {"phase": "scan_timing",
+           "bucketed_layout": {"silos": layout.num_silos,
+                               "n_slots": layout.n_slots,
+                               "batches": layout.num_batches},
+           "first_call_s": fit_row["step_4_parts_s"],
+           "capture_share_of_first_call": (
+               fit_row["step_4_parts_s"]["capture_s"] / fit_row["step_4_s"]),
+           "captures_per_fit": fit_row["cache_stats"]["captures"],
+           "replays_per_fit": fit_row["cache_stats"]["replays"],
+           "chunk_plan_first_call_s": first.timings,
+           "replay_round_s": spread(round_s),
+           "replay_each_round_s": round_s.tolist(),
+           "second_tenant": {"step_4_s": model2.fit_seconds_["federated"],
+                             "hit": res2.cache_stats["hit"],
+                             "new_captures": new_captures,
+                             "timings": res2.timings},
+           "profiled_round": {"wall_s": wall_s, "device_busy_s": busy_s,
+                              "device_busy_share": busy_s / wall_s,
+                              "kernels_run": kernels,
+                              "vmapped_steps": vsteps,
+                              "kernels_per_step": kernels / vsteps}}
+    emit(row)
+    return row
+
+
+def phase_fit_host(dev, data):
+    """The same fit with step 4 on the host engine: per-round times from
+    each round's host sync (its loss), stamped by eval_fn."""
+    Xs, Ys, Xte, Yte = data
+    stamps = []
+    model = fit_model(dev, engine="host", cache=None,
+                      eval_fn=lambda _: stamps.append(time.perf_counter()) or {})
+    t0 = time.perf_counter()
+    _, res = model.fit(Xs, Ys)
+    round_s = np.diff([t0 + model.fit_seconds_["protocol"]] + stamps)
+    check(len(round_s) == model.rounds,
+          f"{len(round_s)} round times of {model.rounds}")
+    acc = model.score(Xte, Yte)
+    row = {"phase": "fit_host", "engine": model.engine,
+           "layout": fit_layout(model),
+           "steps_1_3_s": model.fit_seconds_["protocol"],
+           "step_4_s": model.fit_seconds_["federated"],
+           "step_4_round_s": spread(round_s),
+           "step_4_each_round_s": round_s.tolist(),
+           "final_loss": res.history[-1]["loss"], "test_accuracy": acc}
+    emit(row)
+    check(np.isfinite(acc) and np.isfinite(row["final_loss"]),
+          f"host fit: accuracy {acc}, loss {row['final_loss']}")
+    return row
+
+
+def phase_scan_vs_host(dev, model):
+    """Both engines on the card, cache off, one injected numpy schedule, at
+    the mnist layout: final params and every round's loss within the
+    reference's engine bar. Then the hostile-world boundary: the median
+    under 30% dropout with one silo submitting −5× its delta."""
+    loss = partial(mlp.mlp_per_example_loss, task=model.task)
+    silos = model.setup_.fed_silos()
+    rounds = SCAN_VS_HOST_ROUNDS
+    layout = padded_layout(silos, batch_size=model.batch_size)
+    sched = np.stack([round_perms(7, r, layout.num_silos, model.local_epochs,
+                                  layout.n_slots) for r in range(rounds)])
+    gen = torch.Generator().manual_seed(3)
+    p0 = mlp.init_mlp_params(gen, M_TILDE, model.hidden, 10, device=dev)
+    scale = [1.0] * D
+    scale[D // 2] = -5.0
+    cases = {"fedavg": {},
+             "median_dropout_scaled": dict(aggregator="median",
+                                           dropout_rate=0.3, silo_scale=scale)}
+    row = {"phase": "scan_vs_host", "rounds": rounds, "schedule": "numpy",
+           "bar": ENGINE_TOL}
+    for name, extra in cases.items():
+        out = {}
+        for engine in ("host", "scan"):
+            t0 = time.perf_counter()
+            out[engine] = run_federated(
+                loss, p0, silos, opt=adamw(model.lr), rounds=rounds,
+                local_epochs=model.local_epochs, batch_size=model.batch_size,
+                seed=7, engine=engine, schedule=sched, device=dev, **extra)
+            torch.cuda.synchronize()
+            out[engine + "_s"] = time.perf_counter() - t0
+        h, s = out["host"], out["scan"]
+        params_gap = max(
+            float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+            for a, b in zip(tree_leaves(s.params), tree_leaves(h.params)))
+        loss_gap = max(abs(a["loss"] - b["loss"]) / max(1.0, abs(b["loss"]))
+                       for a, b in zip(s.history, h.history))
+        row[name] = {"params_gap": params_gap, "loss_gap": loss_gap,
+                     "host_s": out["host_s"], "scan_s": out["scan_s"],
+                     "scan_timings": s.timings}
+        check(params_gap <= ENGINE_TOL and loss_gap <= ENGINE_TOL,
+              f"scan vs host {name}: params {params_gap}, losses {loss_gap}")
+    emit(row)
+    return row
+
+
 def phase_step4_profile(model):
-    """One more federated round of the fitted model under torch.profiler:
-    the device's busy share of step 4 (kernel time over wall time; the
-    profiler's own overhead inflates the wall, so the share is a floor)."""
+    """One more federated round of the fitted model on the host engine
+    under torch.profiler: the device's busy share of that engine's step 4
+    (kernel time over wall time; the profiler's own overhead inflates the
+    wall, so the share is a floor)."""
     loss = lambda p, x, y: mlp.mlp_per_example_loss(p, x, y, model.task)
     wall_s, per_kernel, kernels, _ = profile_device(lambda: run_federated(
         loss, model.params_, model.setup_.fed_silos(), opt=adamw(model.lr),
         rounds=1, local_epochs=model.local_epochs,
-        batch_size=model.batch_size, seed=model.seed + 2,
+        batch_size=model.batch_size, seed=model.seed + 2, engine="host",
         device=model.device))
     busy_s = sum(per_kernel.values())
     steps = D * model.local_epochs * -(-C * N_IJ // model.batch_size)
-    row = {"phase": "step4_profile", "rounds": 1, "optimizer_steps": steps,
+    row = {"phase": "step4_profile", "engine": "host", "rounds": 1,
+           "optimizer_steps": steps,
            "wall_s": wall_s, "device_busy_s": busy_s,
            "device_busy_share": busy_s / wall_s,
            "kernels_run": kernels, "kernels_per_step": kernels / steps}
@@ -1144,9 +1312,13 @@ def main() -> int:
     peak = peaks_for(smi)
     rows = phase_kernel_check(peak)
     model, data, fit_row = phase_fit(dev)
+    phase_scan_timing(dev, model, fit_row)
+    phase_fit_host(dev, data)
     phase_step4_profile(model)
+    phase_scan_vs_host(dev, model)
     phase_device_vs_host(model, data)
     del model, data
+    clear_plan_cache()
     flash_rows = phase_flash_check(dev, peak)
     p32, p16, logits, state, nxt, prefill_row = phase_llm_prefill(dev)
     phase_llm_decode(dev, p32, p16, logits, state, nxt)

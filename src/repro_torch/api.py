@@ -7,9 +7,13 @@ plus the federated phase (counterpart of ``repro.api``).
     yhat = model.predict(Xnew)             # through user (0,0)'s transform
 
 Runs on CUDA unless `device="cpu"` is passed (without a card, the default
-raises). Two defaults differ from ``repro``: `engine` is "host" (the scan
-engine is not ported yet), and there is no persistent compilation cache,
-since eager torch compiles nothing.
+raises). As in ``repro``, step 4 runs on the scan engine through the
+process-wide plan cache: the first ``fit()`` of a shape bucket captures one
+federated round as a CUDA graph, and every later ``fit()`` whose padded
+shapes land in the same bucket replays it (``result.cache_stats``). One
+difference stays: there is no persistent compilation cache across
+processes (``repro.api.enable_persistent_compilation_cache``); a captured
+graph lives as long as its process.
 """
 from __future__ import annotations
 
@@ -47,12 +51,13 @@ class FedDCL:
                  aggregator: str = "fedavg", fedprox_mu: float = 0.0,
                  anchor_r: int = 2000, anchor_kind: str = "uniform",
                  mapping_kind: str = "pca_rot", svd_backend: str = "host",
-                 engine: str = "host", seed: int = 0,
+                 engine: str = "scan", seed: int = 0,
                  reset_opt_per_round: bool = True,
-                 cache: Any = None,
+                 cache: Any = True,
                  eval_fn: Optional[Callable[[Any], Dict[str, float]]] = None,
                  dropout_rate: float = 0.0,
                  silo_scale: Optional[Sequence[float]] = None,
+                 trim_frac: float = 0.2, krum_f: int = 1,
                  onboard: bool = True,
                  device: DeviceLike = None):
         self.m_tilde = m_tilde
@@ -75,12 +80,18 @@ class FedDCL:
         self.reset_opt_per_round = reset_opt_per_round
         self.cache = cache
         self.eval_fn = eval_fn
+        # hostile-world knobs: aggregator may be any of
+        # federated.AGGREGATORS, the robust ones included; dropout_rate
+        # simulates silo unavailability; silo_scale is the attack vector
         self.dropout_rate = dropout_rate
         self.silo_scale = silo_scale
+        self.trim_frac = trim_frac
+        self.krum_f = krum_f
         # onboard=True keeps the incremental-update state (cached Grams and
         # QR factors) so partial_fit() can admit tenants without a recompute
         self.onboard = onboard
         self.device = resolve_device(device)
+        # one optimizer per estimator; its cache identity is ("adamw", lr)
         self._opt = adamw(lr)
         self.setup_: Optional[FedDCLSetup] = None
         self.result_: Optional[FLResult] = None
@@ -104,8 +115,12 @@ class FedDCL:
             batch_size=self.batch_size, aggregator=self.aggregator,
             fedprox_mu=self.fedprox_mu, seed=seed, eval_fn=self.eval_fn,
             engine=self.engine, reset_opt_per_round=self.reset_opt_per_round,
-            schedule=schedule, cache=self.cache,
+            schedule=schedule,
+            cache=self.cache if self.engine == "scan" else None,
+            loss_id=("mlp_per_example_loss", self.task),
+            opt_id=("adamw", self.lr),
             dropout_rate=self.dropout_rate, silo_scale=self.silo_scale,
+            trim_frac=self.trim_frac, krum_f=self.krum_f,
             device=self.device)
 
     def fit(self, Xs: Sequence[Sequence[np.ndarray]],
@@ -118,7 +133,13 @@ class FedDCL:
 
         `init_params` (a tree of arrays in the reference's layout) and
         `schedule` (see core.federated) replace the port's own seeded draws,
-        which cannot reproduce the reference's ``jax.random`` ones."""
+        which cannot reproduce the reference's ``jax.random`` ones. With the
+        plan cache on (the default) a schedule is at the BUCKETED layout:
+        (rounds, d', local_epochs, n_slots') with d' = bucket_pow2(d) for d
+        groups and n_slots' = batch_size · bucket_pow2(⌈n_max /
+        batch_size⌉) for the largest group's n_max samples
+        (``federated.padded_layout(setup.fed_silos(), batch_size=...,
+        aggregator=..., cache=True)`` gives it)."""
         t0 = time.perf_counter()
         self.setup_ = protocol.run_protocol(
             Xs, Ys, m_tilde=self.m_tilde, m_hat=self.m_hat,

@@ -6,6 +6,12 @@
 ``adamw`` keeps the reference's defaults (b2=0.95, eps=1e-8, no weight
 decay, bias correction by a float32 step); ``torch.optim.AdamW`` differs in
 b2 and weight decay and is not used.
+
+No ``update`` copies from the host or syncs with it: the step counter stays
+a device tensor, constants enter as Python numbers or fills on the device,
+and the schedules (``optim.schedules``) return a Python number, a CPU
+scalar or a function of the device step. So an update can be captured in a
+CUDA graph (the scan engine captures whole federated rounds).
 """
 from __future__ import annotations
 
@@ -85,10 +91,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         step = state["step"] + 1
         lr_t = lr_fn(step)
         stepf = step.float()
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                           device=stepf.device), stepf)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                           device=stepf.device), stepf)
+        # full_like fills on the device: no tensor is built from a Python
+        # number on the host, so the update can be captured in a CUDA graph
+        bc1 = 1.0 - torch.pow(torch.full_like(stepf, b1), stepf)
+        bc2 = 1.0 - torch.pow(torch.full_like(stepf, b2), stepf)
 
         def upd_m(m, g):
             return (b1 * m.float() + (1 - b1) * g.float()).to(state_dtype)

@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.data.tokens", "repro_torch.kernels.rwkv6.kernel",
             "repro_torch.kernels.rwkv6.ops",
-            "repro_torch.kernels.rwkv6.ref"} <= set(mods)
+            "repro_torch.kernels.rwkv6.ref", "repro_torch.core.baselines",
+            "repro_torch.core.privacy"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -80,7 +81,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: mlp.init_mlp_params(gen, 3, (4,), 1),
                  lambda: federated.run_federated(
                      None, None, [(np.zeros((4, 3)), np.zeros((4, 1)))],
-                     opt=None, rounds=1, local_epochs=1)):
+                     opt=None, rounds=1, local_epochs=1),
+                 lambda: federated.run_federated(
+                     None, None, [(np.zeros((4, 3)), np.zeros((4, 1)))],
+                     opt=None, rounds=1, local_epochs=1, engine="scan"),
+                 lambda: federated.run_federated(
+                     None, None, [(np.zeros((4, 3)), np.zeros((4, 1)))],
+                     opt=None, rounds=1, local_epochs=1, engine="scan",
+                     cache=federated.PlanCache()),
+                 lambda: federated.make_fl_plan(
+                     num_silos=1, num_batches=1, batch_size=4, opt=None,
+                     batch_loss=None, local_epochs=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
