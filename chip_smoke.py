@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (nvcc, at
 first use, one process per source in parallel) and holds each against its
-plain PyTorch version at the shapes its path gives it. Then it drives two
-paths through the port's public entry points:
+plain PyTorch version at the shapes its path gives it. Then it drives
+these paths through the port's public entry points:
 
 - FedDCL Algorithm 1 end to end at the width of the paper's mnist model
   (784 -> m̃ = m̂ = 50, MLP 50-500-100-10; Experiment II layout d = 5 groups
@@ -15,11 +15,17 @@ paths through the port's public entry points:
   a round (its first call split into build, warm-up, capture and
   replays; a second tenant in the same bucket, which captures nothing).
   The same fit on the host engine beside it, and the two engines held
-  together on the card;
+  together on the card. Then step 5 as a live service: FedDCL.serve()
+  (one captured CUDA graph per shape bucket) under a 1,024-request
+  mixed-tenant stream, cold and warm, and live onboarding of a silo (the
+  Gram kernel's onboarding launches) and of a user, every served row held
+  to its direct path;
 - the LLM serving path at full width and depth with random weights from a
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
-  BatchedServer, and gemma2-2b prefill (bf16 and fp32, 8192 tokens, past
-  its 4096-token window): the flash-attention kernels' path (bf16: the
+  BatchedServer (decode and server eager and as captured CUDA graphs,
+  the captured ones held to the eager ones), and gemma2-2b prefill (bf16
+  and fp32, 8192 tokens, past its 4096-token window): the
+  flash-attention kernels' path (bf16: the
   wgmma/TMA kernel; fp32: the 3xTF32 mma.sync kernel), held against the
   plain attention path of the same model;
 - the rwkv6-3b training path at full width and depth with random weights
@@ -28,7 +34,9 @@ paths through the port's public entry points:
   make_train_step for a few steps: the WKV6 kernels' path (the chunked
   forward, twice a layer under remat, and its gradient kernel, once a
   layer), its loss held against the plain WKV6 path of the same model in
-  fp32.
+  fp32; then rwkv6-3b served on the trained params: a bf16 prefill (the
+  chunked plain form, no WKV6 launch), decode and BatchedServer eager and
+  captured, and prefill + decode held to forward in fp32.
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step) give min / median / max over repeats. The line
@@ -39,6 +47,7 @@ fails and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -64,9 +73,10 @@ import torch  # noqa: E402
 from repro_torch.api import FedDCL  # noqa: E402
 from repro_torch.configs import ARCHS, InputShape, TrainConfig  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
-from repro_torch.core.federated import (clear_plan_cache,  # noqa: E402
-                                        padded_layout, plan_cache_stats,
-                                        round_perms, run_federated)
+from repro_torch.core.federated import (PlanCache,  # noqa: E402
+                                        clear_plan_cache, padded_layout,
+                                        plan_cache_stats, round_perms,
+                                        run_federated)
 from repro_torch.data.partition import split_iid  # noqa: E402
 from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
@@ -78,7 +88,8 @@ from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
-from repro_torch.launch.steps import (make_prefill_step, make_serve_step,  # noqa: E402
+from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
+                                      make_prefill_step, make_serve_step,
                                       make_train_step)
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
@@ -132,8 +143,33 @@ WKV_GRAD_TOL = 1e-5      # gradient kernel vs plain gradients, relative, each
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
 GRAD_LAYERS = 2          # depth of the full-width model-level gradient check
 
+# step 5 as a live service (serve_collab): the request stream of the
+# reference's CLI (src/repro/launch/serve_collab.py) at the mnist width
+SERVE_REQUESTS, SERVE_MAX_ROWS, SERVE_MAX_BATCH = 1024, 48, 256
+NEWCOMER_REQUESTS = 64   # served through each onboarded tenant
+# served vs direct path: the reference's atol 2e-5 (tests/test_serve_collab.py:50,
+# outputs of order 1 there), on the error scaled by max(1, max |direct|): the
+# mnist-width logits reach ~37, where 2e-5 is ~5 fp32 ulps and the fp32 direct
+# path alone lies 1.3e-5 from its float64 value (PERF.md §6)
+SERVE_TOL = 2e-5
+# rwkv6-3b serving: a bf16 prefill, then decode and BatchedServer as llama's
+RWKV_PREFILL_B, RWKV_PREFILL_S = 4, 1024
+RWKV_CHECK_S = 1024      # fp32 prefill(S-1) + decode vs forward, B = 1
+GRAPH_TOL = 1e-6         # captured vs eager decode logits, relative
+# steps of the new decode rows' profiled runs and captured-vs-eager gap: the
+# profiler's post-processing grows with the kernels it saw (rwkv6-3b runs
+# ~2,800 a step)
+PROFILE_STEPS = GAP_STEPS = 8
+
+
+_T0 = time.perf_counter()
+
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase row also gets the run's elapsed
+    seconds when it ends."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -637,6 +673,152 @@ def phase_device_vs_host(model, data):
     return row
 
 
+# -- step 5 as a live service -------------------------------------------------
+
+def _pct(xs, p):
+    """The p-th latency as ServeCollab.stats() takes it."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def _serve_pass(srv, spec, pool, params):
+    """Submit the requests `spec` [(group, user, row indices into pool)] and
+    drain the queue: wall time, rows/s, latency, steps, cache deltas, and
+    the largest gap of a served row to the tenant's direct path
+    t(x) = h(f(x) G) (float64 map on the host, the MLP on the card)."""
+    reqs = [srv.submit(pool[idx], g, u) for g, u, idx in spec]
+    before, steps = srv.cache.stats(), srv.steps
+    t0 = time.perf_counter()
+    out = srv.serve()
+    serve_s = time.perf_counter() - t0
+    after = srv.cache.stats()
+    err = {"abs": 0.0, "scaled": 0.0, "abs_vs_f64": 0.0, "direct_vs_f64": 0.0}
+    p64 = tree_map(lambda a: a.double(), params)
+    with torch.no_grad():
+        for r, (g, u, idx) in zip(reqs, spec):
+            h = srv.setup.user_transform(g, u)(pool[idx])
+            want = mlp.mlp_forward(params, torch.as_tensor(
+                np.asarray(h, np.float32), device=srv.device)).cpu().numpy()
+            exact = mlp.mlp_forward(p64, torch.as_tensor(
+                h, device=srv.device)).cpu().numpy()
+            gap = float(np.abs(out[r.rid] - want).max())
+            err["abs"] = max(err["abs"], gap)
+            err["scaled"] = max(err["scaled"], gap / max(
+                1.0, float(np.abs(want).max())))
+            err["abs_vs_f64"] = max(err["abs_vs_f64"], float(
+                np.abs(out[r.rid] - exact).max()))
+            err["direct_vs_f64"] = max(err["direct_vs_f64"], float(
+                np.abs(want - exact).max()))
+    rows = sum(len(idx) for _, _, idx in spec)
+    lat = [r.latency for r in reqs]
+    return {"requests": len(spec), "rows": rows, "serve_s": serve_s,
+            "rows_per_s": rows / serve_s, "steps": srv.steps - steps,
+            "p50_latency_s": _pct(lat, 0.50), "p99_latency_s": _pct(lat, 0.99),
+            "new_plans": after["misses"] - before["misses"],
+            "new_captures": after["captures"] - before["captures"],
+            "replays": after["replays"] - before["replays"],
+            "all_done": set(out.status.values()) == {"done"},
+            "max_abs_err_vs_direct": err["abs"],
+            "max_scaled_err_vs_direct": err["scaled"],
+            # both paths against the direct path evaluated in float64
+            "max_abs_err_vs_f64": err["abs_vs_f64"],
+            "direct_max_abs_err_vs_f64": err["direct_vs_f64"]}
+
+
+def phase_serve_collab(dev, model, data):
+    """Step 5 as a live multi-tenant service: FedDCL.serve() on the fitted
+    mnist-width model (a copy of its setup, so live onboarding leaves the
+    other phases' setup as it was). A cold pass of the CLI's stream (1,024
+    requests of 1–48 rows, each to a tenant uniform over the 20), the same
+    stream warm (nothing new captured), then live onboarding: a new silo
+    (4 users, T_pad 4: its Gram kernel launches counted) and a fifth user
+    in group 0 (T_pad 4 -> 8: new buckets), each followed by 64 requests
+    through the newcomer. Every served row is held to its direct path."""
+    _, _, Xte, _ = data
+    served = copy.copy(model)
+    served.setup_ = copy.deepcopy(model.setup_)
+    cache = PlanCache()
+    srv = served.serve(max_batch=SERVE_MAX_BATCH, cache=cache)
+    check(srv.device == dev and len(srv.tables) == D
+          and all(t.t_pad == C for t in srv.tables),
+          f"serve tables: {[(t.count, t.t_pad) for t in srv.tables]}")
+    rng = np.random.default_rng(7)
+
+    def spec(n, tenants):
+        return [(*tenants[int(rng.integers(len(tenants)))],
+                 rng.integers(0, len(Xte), int(rng.integers(
+                     1, SERVE_MAX_ROWS + 1)))) for _ in range(n)]
+
+    stream = spec(SERVE_REQUESTS, [(g, u) for g in range(D) for u in range(C)])
+    passes = {"cold": _serve_pass(srv, stream, Xte, model.params_),
+              "warm": _serve_pass(srv, stream, Xte, model.params_)}
+    # the same stream once more, under the profiler: the card's share
+    for g, u, idx in stream:
+        srv.submit(Xte[idx], g, u)
+    steps = srv.steps
+    wall, per_kernel, kernels, _ = profile_device(srv.serve)
+    steps = srv.steps - steps
+    busy = sum(per_kernel.values())
+    profiled = {"steps": steps, "wall_s": wall, "device_busy_s": busy,
+                "device_busy_share": busy / wall,
+                "device_us_per_step": busy / steps * 1e6,
+                "kernels_per_step": kernels / steps}
+    # live onboarding: new data drawn from the stand-in with another seed
+    Xs2, Ys2, _, _ = mnist_exp2_layout(seed=2)
+    gram_kernel.reset_launches()
+    t0 = time.perf_counter()
+    gi = srv.onboard_silo(Xs2[0], Ys2[0])
+    silo_s = time.perf_counter() - t0
+    silo_launches = gram_kernel.launches
+    passes["onboard_silo"] = _serve_pass(
+        srv, spec(NEWCOMER_REQUESTS, [(gi, u) for u in range(C)]), Xte,
+        model.params_)
+    gram_kernel.reset_launches()
+    t0 = time.perf_counter()
+    uj = srv.onboard_user(0, Xs2[1][0], Ys2[1][0])
+    user_s = time.perf_counter() - t0
+    user_launches = gram_kernel.launches
+    passes["onboard_user"] = _serve_pass(
+        srv, spec(NEWCOMER_REQUESTS, [(0, uj)]), Xte, model.params_)
+    st = srv.stats()
+    row = {"phase": "serve_collab", "max_batch": SERVE_MAX_BATCH,
+           "max_rows": SERVE_MAX_ROWS, "passes": passes,
+           "profiled_warm_pass": profiled,
+           "onboard_silo": {"group": gi, "t_pad": srv.tables[gi].t_pad,
+                            "s": silo_s, "gram_launches": silo_launches},
+           "onboard_user": {"group": 0, "user": uj,
+                            "t_pad": srv.tables[0].t_pad, "s": user_s,
+                            "gram_launches": user_launches},
+           "steps": st["steps"], "buckets": st["buckets"],
+           "cache": st["cache"],
+           "max_abs_err_vs_direct": max(p["max_abs_err_vs_direct"]
+                                        for p in passes.values()),
+           "max_scaled_err_vs_direct": max(p["max_scaled_err_vs_direct"]
+                                           for p in passes.values()),
+           "bar": SERVE_TOL}
+    emit(row)
+    for name, p in passes.items():
+        check(p["all_done"], f"serve_collab {name}: not every request done")
+        check(p["max_scaled_err_vs_direct"] <= SERVE_TOL,
+              f"serve_collab {name}: served vs direct path "
+              f"{p['max_scaled_err_vs_direct']} (scaled)")
+        # on the card each new bucket is one captured graph
+        check(p["new_captures"] == p["new_plans"],
+              f"serve_collab {name}: {p['new_captures']} captures for "
+              f"{p['new_plans']} new buckets")
+    check(passes["cold"]["new_captures"] > 0
+          and passes["warm"]["new_captures"] == 0,
+          f"serve_collab: the warm pass captured "
+          f"{passes['warm']['new_captures']}")
+    check(row["onboard_silo"]["t_pad"] == C and silo_launches > 0,
+          f"onboard_silo: {row['onboard_silo']}")
+    check(row["onboard_user"]["t_pad"] == 2 * C
+          and passes["onboard_user"]["new_captures"] > 0,
+          f"onboard_user: {row['onboard_user']}, "
+          f"{passes['onboard_user']}")
+    return row
+
+
 # -- phase 5: flash attention, kernel vs plain -------------------------------
 
 def visible_pairs(Sq, Sk, causal, window, q_offset) -> int:
@@ -921,6 +1103,7 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
     check(fa_kernel.launches() == 0, "decode runs no flash kernel")
     prof_wall, per_kernel, kernels, _ = profile_device(decode_run)
     busy_s = sum(per_kernel.values())
+    graph = captured_decode(cfg, p16, state, tok, pos, dev)
 
     # BatchedServer at full width, as serve.py:main runs it
     def requests():   # a Request keeps its output: fresh ones each run
@@ -932,7 +1115,8 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
     serve_runs = []
     for _ in range(REPEATS):
         reqs = requests()
-        server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev)
+        server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev,
+                               capture=False)
         t0 = time.perf_counter()
         outs = server.serve(reqs)
         torch.cuda.synchronize()
@@ -943,6 +1127,8 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
     serve_s = statistics.median(serve_runs)
     total = sum(len(v) for v in outs.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
+    captured_server = captured_server_runs(cfg, p32, requests, outs, dev,
+                                           cache_len=256)
     row = {"phase": "llm_decode", "arch": cfg.name,
            "bf16": {"batch": PREFILL_B, "steps": DECODE_STEPS,
                     "start_pos": PREFILL_S, "decode_s": decode_s,
@@ -953,7 +1139,8 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
                         PREFILL_B * DECODE_STEPS / t for t in decode_runs),
                     "profiled_device_busy_share": busy_s / prof_wall,
                     "device_ms_per_step": busy_s / DECODE_STEPS * 1e3,
-                    "kernels_per_step": kernels / DECODE_STEPS},
+                    "kernels_per_step": kernels / DECODE_STEPS,
+                    "graph": graph},
            "server_fp32": {"requests": len(reqs), "slots": 4,
                            "cache_len": 256, "max_new": 16,
                            "prompt_tokens": prompt_tokens,
@@ -961,9 +1148,98 @@ def phase_llm_decode(dev, p32, p16, logits, state, nxt):
                            "server_tokens_per_s": total / serve_s,
                            "server_tokens_per_s_spread": spread(
                                total / t for t in serve_runs),
-                           "status": sorted(set(outs.status.values()))}}
+                           "status": sorted(set(outs.status.values())),
+                           "captured": captured_server}}
     emit(row)
+    check_graph_rows(cfg.name, graph, captured_server)
     return row
+
+
+def captured_decode(cfg, params, state, tok, pos, dev, compute_dtype=None):
+    """The same greedy decode as the eager rows, through the captured step
+    (one CUDA graph for this state): tokens/s over REPEATS runs of
+    DECODE_STEPS, the device's busy share and kernels of a profiled run of
+    PROFILE_STEPS, and the captured vs eager logits gap over GAP_STEPS
+    steps from two copies of the state on the same tokens."""
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+    step = make_captured_serve_step(cfg, device=dev, **kw)
+    B = tok.shape[0]
+
+    def run(steps=DECODE_STEPS):
+        nonlocal tok, pos
+        for _ in range(steps):
+            out, _ = step(params, state, tok, pos)
+            tok = out[:, 0].argmax(-1, keepdim=True)
+            pos = pos + 1
+        return out
+
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out).all()), "captured decode logits")
+    wall, per_kernel, kernels, _ = profile_device(lambda: run(PROFILE_STEPS))
+    busy = sum(per_kernel.values())
+    eager = make_serve_step(cfg, device=dev, **kw)
+    s_e, s_c = (tree_map(torch.clone, state) for _ in range(2))
+    t, p, gap, gap_abs = tok.clone(), pos.clone(), 0.0, 0.0
+    for _ in range(GAP_STEPS):
+        le, _ = eager(params, s_e, t, p)
+        lc, _ = step(params, s_c, t, p)
+        gap = max(gap, rel(lc.double().cpu(), le.double().cpu()))
+        gap_abs = max(gap_abs, float((lc - le).abs().max()))
+        t, p = le[:, 0].argmax(-1, keepdim=True), p + 1
+    del s_e, s_c
+    med = statistics.median(runs)
+    return {"decode_s": med, "ms_per_step": med / DECODE_STEPS * 1e3,
+            "decode_tokens_per_s": B * DECODE_STEPS / med,
+            "decode_tokens_per_s_spread": spread(
+                B * DECODE_STEPS / r for r in runs),
+            "profiled_device_busy_share": busy / wall,
+            "device_ms_per_step": busy / PROFILE_STEPS * 1e3,
+            "kernels_per_step": kernels / PROFILE_STEPS,
+            "captures": step.captures, "replays": step.replays,
+            "vs_eager_logits_rel": gap, "vs_eager_logits_max_abs": gap_abs}
+
+
+def captured_server_runs(cfg, params, requests, eager_outs, dev, **kw):
+    """BatchedServer on its CUDA default, the captured decode (one graph a
+    slot, one for the full batch): a cold run that captures them, then
+    REPEATS warm runs on the same server; every run's tokens equal to the
+    eager server's (`eager_outs`)."""
+    server = BatchedServer(cfg, params, slots=4, device=dev, **kw)
+    runs, same = [], []
+    for _ in range(1 + REPEATS):
+        t0 = time.perf_counter()
+        outs = server.serve(requests())
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        same.append(dict(outs) == dict(eager_outs)
+                    and outs.status == eager_outs.status)
+    total = sum(len(v) for v in outs.values())
+    return {"cold_serve_s": runs[0], "serve_s": statistics.median(runs[1:]),
+            "server_tokens_per_s": total / statistics.median(runs[1:]),
+            "server_tokens_per_s_spread": spread(total / t for t in runs[1:]),
+            "cold_server_tokens_per_s": total / runs[0],
+            "captures": server.captures, "slots": server.slots,
+            "tokens_equal_eager": all(same)}
+
+
+def check_graph_rows(name, graph, server):
+    check(graph["vs_eager_logits_rel"] <= GRAPH_TOL,
+          f"{name} captured vs eager decode logits: "
+          f"{graph['vs_eager_logits_rel']}")
+    check(graph["captures"] == 2,
+          f"{name} captured decode: {graph['captures']} captures (expected "
+          f"one for the timed state and one for the gap's copy)")
+    check(server["tokens_equal_eager"],
+          f"{name} captured server's tokens differ from the eager server's")
+    check(server["captures"] == server["slots"] + 1,
+          f"{name} captured server: {server['captures']} captures for "
+          f"{server['slots']} slots")
 
 
 # -- phase 7: gemma2-2b prefill past its window -------------------------------
@@ -1295,6 +1571,130 @@ def phase_rwkv6_train(dev, wkv_main):
           f"wkv6 launches in the fp32 loss: {fp32_launches}")
     check(row["fp32_b1"]["rel"] <= LM_TOL and hidden_rel <= LM_TOL,
           f"rwkv6 fp32 loss kernel vs plain path: {row['fp32_b1']}")
+    return row, params
+
+
+def phase_rwkv6_serve(dev, params):
+    """rwkv6-3b serving at full width and depth on the trained params: a
+    bf16-compute prefill of 4 x 1024 (the chunked plain form, as in the
+    reference: the WKV6 kernel returns no final state, so no launch), then
+    greedy decode from its state, eager and captured, on bf16 weights (the
+    decay and bonus stay fp32, as a bf16 init keeps them); BatchedServer
+    in fp32, eager and captured, as llama's; and prefill(S-1) + one decode
+    against forward's last logits in fp32."""
+    cfg = RWKV
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    for name in ("decay_base", "bonus"):
+        p16["layers"]["tm"][name] = params["layers"]["tm"][name]
+    tokens = {"tokens": random_tokens(
+        3, (RWKV_PREFILL_B, RWKV_PREFILL_S), cfg.vocab_size, dev)}
+    step = make_prefill_step(cfg, cache_len=RWKV_PREFILL_S, device=dev)
+    wkv_kernel.reset_launches()
+    logits, state, nxt = step(p16, tokens)
+    torch.cuda.synchronize()
+    prefill_launches = wkv_kernel.launches
+    check(tuple(logits.shape) == (RWKV_PREFILL_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "rwkv6 bf16 prefill logits")
+    prefill_s = wall_s(lambda: step(p16, tokens))
+
+    # greedy decode from the prefill state, eager then captured
+    serve_step = make_serve_step(cfg, device=dev)
+    tok = logits[:, 0].argmax(-1, keepdim=True)
+    pos = nxt.clone()
+
+    def decode_run(steps=DECODE_STEPS):
+        nonlocal tok, pos
+        for _ in range(steps):
+            out, _ = serve_step(p16, state, tok, pos)
+            tok = out[:, 0].argmax(-1, keepdim=True)
+            pos = pos + 1
+        return out
+
+    decode_runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_run()
+        torch.cuda.synchronize()
+        decode_runs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out).all()), "rwkv6 decode logits")
+    prof_wall, per_kernel, kernels, _ = profile_device(
+        lambda: decode_run(PROFILE_STEPS))
+    busy_s = sum(per_kernel.values())
+    graph = captured_decode(cfg, p16, state, tok, pos, dev)
+    del p16, state, logits
+
+    # BatchedServer at full width in fp32, as llama's
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   size=rng.integers(4, 12)),
+                        max_new=16) for i in range(8)]
+
+    serve_runs = []
+    for _ in range(REPEATS):
+        server = BatchedServer(cfg, params, slots=4, device=dev,
+                               capture=False)
+        t0 = time.perf_counter()
+        outs = server.serve(requests())
+        torch.cuda.synchronize()
+        serve_runs.append(time.perf_counter() - t0)
+        check(set(outs.status.values()) == {"done"}
+              and all(len(v) == 16 for v in outs.values()),
+              f"rwkv6 server statuses {outs.status}")
+    del server
+    total = sum(len(v) for v in outs.values())
+    captured_server = captured_server_runs(cfg, params, requests, outs, dev)
+
+    # fp32: prefill(S-1) then one decode against forward's last logits
+    f32 = dict(compute_dtype=torch.float32)
+    t32 = random_tokens(4, (1, RWKV_CHECK_S), cfg.vocab_size, dev)
+    with torch.no_grad():
+        full = bb.forward(params, t32, cfg, **f32)[0][:, -1].float().cpu()
+        wkv_kernel.reset_launches()
+        _, s32, n32 = make_prefill_step(cfg, cache_len=RWKV_CHECK_S,
+                                        device=dev, **f32)(
+            params, {"tokens": t32[:, :-1]})
+        fp32_prefill_launches = wkv_kernel.launches
+        dec, _ = make_serve_step(cfg, device=dev, **f32)(
+            params, s32, t32[:, -1:], n32)
+    prefill_vs_forward = rel(dec[:, 0].cpu(), full)
+    serve_s = statistics.median(serve_runs)
+    dec_s = statistics.median(decode_runs)
+    B = RWKV_PREFILL_B
+    row = {"phase": "rwkv6_serve", "arch": cfg.name,
+           "params": cfg.param_count(),
+           "bf16": {"batch": B, "seq": RWKV_PREFILL_S,
+                    "prefill_s": prefill_s,
+                    "prefill_tokens_per_s": B * RWKV_PREFILL_S / prefill_s,
+                    "prefill_wkv6_launches": prefill_launches,
+                    "decode_steps": DECODE_STEPS, "decode_s": dec_s,
+                    "ms_per_step": dec_s / DECODE_STEPS * 1e3,
+                    "decode_tokens_per_s": B * DECODE_STEPS / dec_s,
+                    "decode_tokens_per_s_spread": spread(
+                        B * DECODE_STEPS / t for t in decode_runs),
+                    "profiled_device_busy_share": busy_s / prof_wall,
+                    "device_ms_per_step": busy_s / PROFILE_STEPS * 1e3,
+                    "kernels_per_step": kernels / PROFILE_STEPS,
+                    "graph": graph},
+           "server_fp32": {"requests": 8, "slots": 4, "max_new": 16,
+                           "new_tokens": total, "serve_s": serve_s,
+                           "server_tokens_per_s": total / serve_s,
+                           "server_tokens_per_s_spread": spread(
+                               total / t for t in serve_runs),
+                           "captured": captured_server},
+           "fp32_b1": {"seq": RWKV_CHECK_S,
+                       "prefill_plus_decode_vs_forward_rel":
+                           prefill_vs_forward,
+                       "prefill_wkv6_launches": fp32_prefill_launches}}
+    emit(row)
+    check(prefill_launches == 0 and fp32_prefill_launches == 0,
+          f"rwkv6 prefill launched the WKV6 kernel "
+          f"({prefill_launches}, {fp32_prefill_launches}): its state needs "
+          f"the chunked plain form")
+    check(prefill_vs_forward <= LM_TOL,
+          f"rwkv6 prefill(S-1)+decode vs forward: {prefill_vs_forward}")
+    check_graph_rows(cfg.name, graph, captured_server)
     return row
 
 
@@ -1312,6 +1712,8 @@ def main() -> int:
     peak = peaks_for(smi)
     rows = phase_kernel_check(peak)
     model, data, fit_row = phase_fit(dev)
+    serve_row = phase_serve_collab(dev, model, data)
+    torch.cuda.empty_cache()
     phase_scan_timing(dev, model, fit_row)
     phase_fit_host(dev, data)
     phase_step4_profile(model)
@@ -1327,7 +1729,9 @@ def main() -> int:
     gemma_row = phase_gemma2_prefill(dev)
     torch.cuda.empty_cache()
     wkv_rows = phase_wkv6_check(dev, peak)
-    train_row = phase_rwkv6_train(dev, wkv_rows[0])
+    train_row, rwkv_params = phase_rwkv6_train(dev, wkv_rows[0])
+    rwkv_serve_row = phase_rwkv6_serve(dev, rwkv_params)
+    del rwkv_params
     main_rows = rows[:len(MAIN_SHAPES)]
 
     def per_fit(key):
@@ -1364,6 +1768,10 @@ def main() -> int:
             if r["bound_by"] == "bytes") >= per_fit("bound_ms")
         else "operations",
         "library_ms": per_fit("library_ms"),
+        # the live serving path's launches: FedDCL.serve()'s onboarding
+        "onboard_launches": {
+            "onboard_silo": serve_row["onboard_silo"]["gram_launches"],
+            "onboard_user": serve_row["onboard_user"]["gram_launches"]},
         "device_ms": per_fit("device_ms"),
         "library_device_ms": per_fit("library_device_ms")}, {
         "name": "flash_attention_fwd_bf16_wgmma", "route": "cuda",
@@ -1401,7 +1809,10 @@ def main() -> int:
         "device_ms": n_wkv * wkv_main["device_ms"],
         "plain_ms": n_wkv * wkv_main["plain_ms"],
         "bound_ms": n_wkv * wkv_main["bound_ms"],
-        "bound_by": wkv_main["bound_by"], "library_ms": None}, {
+        "bound_by": wkv_main["bound_by"], "library_ms": None,
+        # serving: prefill needs the final state and takes the chunked
+        # plain form, as the reference's prefill does
+        "serving_launches": rwkv_serve_row["bf16"]["prefill_wkv6_launches"]}, {
         "name": "wkv6_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
         "replaces": "none: the reference has no backward kernel; it takes "

@@ -190,9 +190,12 @@ class FedDCL:
         return i, j
 
     def serve(self, **kw) -> Any:
-        raise NotImplementedError(
-            "FedDCL.serve() is not ported to repro_torch yet (ROADMAP.md, "
-            "Queue 1: serve_collab is the next slice)")
+        """A live multi-tenant ``serve_collab.ServeCollab`` over this fitted
+        model (every tenant's x → f(x)·G → h, bucketed, on the estimator's
+        device unless `device` says otherwise; on CUDA one captured step a
+        shape bucket). Its onboarding updates this estimator's setup."""
+        from repro_torch.serve_collab import ServeCollab
+        return ServeCollab.from_model(self, **kw)
 
     # -- inference ---------------------------------------------------------
 

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import capture
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -973,20 +974,6 @@ def _make_round_step(*, num_batches: int, batch_size: int, opt: Optimizer,
     return round_step
 
 
-_CAPTURE_STREAMS: Dict[str, "torch.cuda.Stream"] = {}
-
-
-def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The side stream every plan on `device` warms up and captures on. A
-    stream that has run a matmul keeps a cuBLAS workspace (tens of MB) for
-    the life of the process, so one stream per plan would hold one more
-    each time a plan is captured."""
-    key = str(device)
-    if key not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[key] = torch.cuda.Stream(device)
-    return _CAPTURE_STREAMS[key]
-
-
 class FLPlan:
     """A scan-engine PLAN (``make_fl_plan``): one round of the FL phase over
     a (num_silos, num_batches · batch_size, …) padded stack as a torch
@@ -1158,23 +1145,17 @@ class FLPlan:
         graph), then capture one round that ends by copying its carry into
         the carry buffers. A failed capture raises."""
         args = lambda: (b.carry, b.perms, b.X, b.Y, b.w, b.wr, b.scale)
-        t0 = time.perf_counter()
-        side = _capture_stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.round_step(*args())           # results dropped
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+
+        def round_into_buffers():
             carry, loss, _ = self.round_step(*args())
             tree_map(lambda dst, src: dst.copy_(src), b.carry, carry)
-        b.loss = loss
-        self._graph = graph
+            return loss
+
+        # the warm-up's results are dropped: the carry buffers stay as they are
+        self._graph, b.loss = capture(
+            round_into_buffers, self.device,
+            warmup=lambda: self.round_step(*args()), timings=timings)
         self.captures += 1
-        timings["warmup_s"] = t1 - t0
-        timings["capture_s"] = time.perf_counter() - t1
 
 
 # the reference's name for building a plan

@@ -6,7 +6,15 @@ A queue of prompts is served by a fixed-width slot table: finished
 sequences release their slot to the next queued request mid-flight; the
 decode step always runs the full (padded) batch. Slot positions and
 current tokens live on the host (NumPy) and go to the device once per
-step; the cache lives on the device and is updated in place.
+step; the decode state (dense: the KV cache; ssm: rwkv6's recurrent and
+token-shift states) lives on the device and is updated in place. On CUDA
+every decode runs as a captured graph (``make_captured_serve_step``): one
+for the full batch and one per slot for its B=1 prompt steps.
+
+Unlike the reference, admission zeroes an ssm slot's state: the
+reference's ``_prefill_slot`` decodes a new prompt from whatever state the
+slot's last request left, which the dense family's position mask hides and
+the ssm family's recurrence does not.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b [--device cpu]
 """
@@ -23,7 +31,8 @@ import torch
 
 from repro_torch.configs import ARCHS, REDUCED
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.steps import (make_captured_serve_step,
+                                     make_serve_step)
 from repro_torch.models import backbone as bb
 from repro_torch.tree import tree_map
 
@@ -59,11 +68,12 @@ def _stream_seed(seed: int, rid: int, n: int) -> int:
 
 class BatchedServer:
     """Slot-table continuous batching over decode_step (fp32, as the
-    reference's server)."""
+    reference's server). `capture` (default: on CUDA) runs the decode
+    steps as CUDA graphs; False runs them eagerly."""
 
     def __init__(self, cfg, params, *, slots: int = 4, cache_len: int = 512,
                  temperature: float = 0.0, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, capture: Optional[bool] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -76,16 +86,28 @@ class BatchedServer:
         self.pos = np.zeros((slots,), np.int32)
         self.cur_tok = np.zeros((slots, 1), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
-        self._decode = make_serve_step(cfg, compute_dtype=torch.float32,
-                                       device=self.device)
+        if capture is None:
+            capture = self.device.type == "cuda"
+        make = make_captured_serve_step if capture else make_serve_step
+        self._decode = make(cfg, compute_dtype=torch.float32,
+                            device=self.device)
+
+    @property
+    def captures(self) -> int:
+        """Decode graphs captured (0 for an eager server)."""
+        return getattr(self._decode, "captures", 0)
 
     def _prefill_slot(self, slot: int, req: Request):
-        # per-slot prefill on a B=1 view of the slot's cache (every decode
+        # per-slot prefill on a B=1 view of the slot's state (every decode
         # state leaf carries batch at axis 1): the prompt decodes as P
         # single-sequence steps, written in place into the slot's rows, and
         # live slots' state is untouched by construction
         toks = req.prompt
         self.pos[slot] = len(toks)
+        if self.cfg.family == "ssm":
+            # a fresh recurrence: the slot's last request left its state
+            for a in self.state.values():
+                a[:, slot].zero_()
         if len(toks) == 0:
             # empty prompt: nothing to prefill (and no logits to sample
             # from) — seed the slot with token 0 at pos 0 and let the next

@@ -1,19 +1,23 @@
 """Step functions (counterpart of ``repro.launch.steps``): the
-baseline train step, the prefill step and the serve (decode) step. The
-federated round steps are not ported yet (ROADMAP.md, Queue 1).
+baseline train step, the prefill step and the serve (decode) step, eager
+or captured. The federated round steps are not ported yet (ROADMAP.md,
+Queue 1).
 
 ``make_*`` fixes the device (CUDA unless the caller asks for the CPU) and
 the step moves its token inputs there, so a caller can hand over NumPy.
+``make_captured_serve_step`` is the port's counterpart of the reference's
+``jax.jit`` of the serve step: the same step as CUDA graphs, replayed.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import capture
 from repro_torch.models import backbone as bb
 from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
                                global_norm, sgd)
@@ -57,6 +61,66 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                               compute_dtype=compute_dtype)
 
     return serve_step
+
+
+def _layout(tree: Any) -> Tuple:
+    """Where and how a tree's tensors lie: what a captured graph bakes in."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in tree_leaves(tree))
+
+
+class CapturedServeStep:
+    """``make_serve_step``'s step as CUDA graphs, one per (params, state,
+    batch) layout: the config and compute dtype are the step's; the batch
+    and cache length are the state's shapes; params and state are keyed by
+    their addresses (a per-slot view of a state is a layout of its own).
+
+    A call moves `tokens` (B, 1) and `cur_pos` (B,) to the card (NumPy
+    goes host-to-device here, outside any graph), copies them into the
+    graph's static buffers and replays it. The graph writes the state in
+    place, as the eager step does, and the logits it returns are the
+    graph's static output buffer: the next call on the same layout
+    rewrites them. The first call on a layout warms the step up on a copy
+    of the state (so the state advances once, by the replay) and captures
+    it; a failed capture raises. `captures` / `replays` count them.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a captured serve step needs a CUDA device, "
+                             f"not {self.device}")
+        self._step = make_serve_step(cfg, compute_dtype=compute_dtype,
+                                     device=self.device)
+        self._graphs: Dict[Tuple, Tuple] = {}
+        self.captures = self.replays = 0
+
+    def __call__(self, params, state, tokens, cur_pos):
+        tokens, cur_pos = _on(tokens, self.device), _on(cur_pos, self.device)
+        key = (_layout(params), _layout(state),
+               (tuple(tokens.shape), tokens.dtype),
+               (tuple(cur_pos.shape), cur_pos.dtype))
+        entry = self._graphs.get(key)
+        if entry is None:
+            tok, pos = tokens.clone(), cur_pos.clone()
+            warm = tree_map(torch.clone, state)
+            graph, (logits, _) = capture(
+                lambda: self._step(params, state, tok, pos), self.device,
+                warmup=lambda: self._step(params, warm, tok, pos))
+            del warm
+            entry = self._graphs[key] = (graph, tok, pos, logits)
+            self.captures += 1
+        graph, tok, pos, logits = entry
+        tok.copy_(tokens)
+        pos.copy_(cur_pos)
+        graph.replay()
+        self.replays += 1
+        return logits, state
+
+
+# the make_* name of the captured serve step, beside make_serve_step
+make_captured_serve_step = CapturedServeStep
 
 
 def make_optimizer(tc: TrainConfig):

@@ -3,8 +3,9 @@
   dense : a uniform [attn + SwiGLU] stack (GQA, sliding window, softcap,
           qk-norm per config), with forward, loss, prefill and cached
           single-token decode;
-  ssm   : rwkv6's [time-mix + channel-mix] stack, with forward and loss
-          (its prefill and decode are not ported yet).
+  ssm   : rwkv6's [time-mix + channel-mix] stack, with forward, loss,
+          prefill (which also returns the recurrent state) and
+          single-token decode from that state.
 
 Parameters are stacked on a leading layer axis L, as in the reference, so
 its weights carry over as they are (``repro_torch.weights``); layers run in
@@ -17,8 +18,14 @@ raise NotImplementedError naming ROADMAP.md.
 
 ``use_kernels`` (the reference's ``use_pallas``) sends the attention of
 forward and prefill through the flash-attention kernel, and rwkv6's
-recurrence through the WKV6 kernel; False runs the plain paths (``sdpa``,
-``wkv6_chunked``). Decode runs no kernel, as in the reference.
+recurrence in forward and loss through the WKV6 kernel; False runs the
+plain paths (``sdpa``, ``wkv6_chunked``). rwkv6's prefill needs the final
+recurrent state, which the WKV6 kernel does not return (ROADMAP.md, Queue 2
+item 2): it takes the chunked plain form whatever ``use_kernels`` says, as
+the reference's prefill does. Decode runs no kernel, as in the reference.
+Decode writes its state in place (the KV caches; rwkv6's ``wkv``,
+``x_prev_att`` and ``x_prev_ffn``), so a caller's view of one batch row,
+as ``BatchedServer`` keeps per slot, sees every update.
 """
 from __future__ import annotations
 
@@ -37,19 +44,14 @@ from repro_torch.tree import tree_leaves, tree_map
 Params = Dict[str, Any]
 
 
-def _check_ported(cfg: ModelConfig, *, serving: bool = False) -> None:
+def _check_ported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet: the moe (its aux loss and
-    MTP head included), hybrid, MLA and modality-prefix families, and, with
-    `serving`, the ssm family's prefill and decode."""
-    families = ("dense",) if serving else ("dense", "ssm")
-    if (cfg.family not in families or cfg.mla is not None
+    MTP head included), hybrid, MLA and modality-prefix families."""
+    if (cfg.family not in ("dense", "ssm") or cfg.mla is not None
             or cfg.prefix_frontend):
-        what = ("prefill / decode" if cfg.family == "ssm"
-                else f"family {cfg.family!r}")
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ported: the dense "
-            f"family, and the ssm family's forward and loss). See "
-            f"ROADMAP.md, Queue 1")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ported: "
+            f"the dense and ssm families). See ROADMAP.md, Queue 1")
 
 
 # ===========================================================================
@@ -293,10 +295,14 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
     """Process a full prompt, returning (last-position logits (B, 1, V),
     decode state matching init_decode_state, next position (B,))."""
-    _check_ported(cfg, serving=True)
+    _check_ported(cfg)
     x, positions, _ = embed_inputs(params, tokens, cfg)
     x = x.to(compute_dtype)
     B, T = positions.shape
+    if cfg.family == "ssm":
+        x, state = _prefill_rwkv(params["layers"], x, cfg)
+        return (_last_logits(params, x, cfg), state,
+                torch.full((B,), T, dtype=torch.int32, device=x.device))
     pos1d = positions[0]
     cache = L.init_kv_cache(cfg, B, cache_len, cfg.num_layers, cache_dtype,
                             x.device)
@@ -307,10 +313,32 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                    is_local=flag, use_kernels=use_kernels,
                                    return_kv=True)
         _fill_cache(cache, i, kv, pos1d)
-    hidden = L.apply_rmsnorm(params["ln_final"], x[:, -1:], cfg.norm_eps)
-    logits = _lm_logits(params, hidden, cfg)
     next_pos = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    return logits, {"cache": cache}, next_pos
+    return _last_logits(params, x, cfg), {"cache": cache}, next_pos
+
+
+def _last_logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    hidden = L.apply_rmsnorm(params["ln_final"], x[:, -1:], cfg.norm_eps)
+    return _lm_logits(params, hidden, cfg)
+
+
+def _prefill_rwkv(stacked: Params, x: torch.Tensor, cfg: ModelConfig):
+    """rwkv6's layers over the prompt, each also returning its final wkv
+    state (the chunked plain form) and its last normalized inputs, fp32:
+    the decode state of init_decode_state."""
+    wkv, xpa, xpf = [], [], []
+    for lp in _layers(stacked):
+        hn = L.apply_rmsnorm(lp["ln_att"], x, cfg.norm_eps)
+        att, s = L.rwkv6_timemix(lp["tm"], hn, cfg, return_state=True)
+        x = x + att
+        hf = L.apply_rmsnorm(lp["ln_ffn"], x, cfg.norm_eps)
+        hf_prev = F.pad(hf, (0, 0, 1, 0))[:, :-1]
+        x = x + L.rwkv6_channelmix(lp["cm"], hf, hf_prev)
+        wkv.append(s)
+        xpa.append(hn[:, -1].float())
+        xpf.append(hf[:, -1].float())
+    return x, {"wkv": torch.stack(wkv), "x_prev_att": torch.stack(xpa),
+               "x_prev_ffn": torch.stack(xpf)}
 
 
 # ===========================================================================
@@ -320,27 +348,39 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=torch.bfloat16, *,
                       device: DeviceLike = None) -> Params:
-    """Cache tree for serve_step. cache_len should be min(seq_len, window)
-    for pure sliding-window configs."""
-    _check_ported(cfg, serving=True)
+    """State tree for serve_step: the KV cache (dense; cache_len should be
+    min(seq_len, window) for pure sliding-window configs), or rwkv6's fp32
+    recurrent state and token-shift states (ssm; no cache_len or dtype)."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        zeros = lambda *shape: torch.zeros((cfg.num_layers, batch) + shape,
+                                           dtype=torch.float32, device=dev)
+        hd = cfg.ssm.head_dim
+        return {"wkv": zeros(cfg.num_heads, hd, hd),
+                "x_prev_att": zeros(cfg.d_model),
+                "x_prev_ffn": zeros(cfg.d_model)}
     return {"cache": L.init_kv_cache(cfg, batch, cache_len, cfg.num_layers,
-                                     dtype, resolve_device(device))}
+                                     dtype, dev)}
 
 
 def decode_step(params: Params, state: Params, tokens: torch.Tensor,
                 cur_pos: torch.Tensor, cfg: ModelConfig, *,
                 compute_dtype=torch.bfloat16):
     """One decode step. tokens: (B, 1) int; cur_pos: (B,) absolute position.
-    Returns (logits (B, 1, V) fp32, state). The caches are updated in
-    place, so the returned state is `state` itself (the reference returns
-    an updated copy)."""
-    _check_ported(cfg, serving=True)
+    Returns (logits (B, 1, V) fp32, state). The state is updated in place,
+    so the returned state is `state` itself (the reference returns an
+    updated copy)."""
+    _check_ported(cfg)
     x = params["embed"][tokens[:, 0].long()][:, None]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     x = x.to(compute_dtype)
-    x = _decode_attn_stack(params["layers"], state["cache"], x, cur_pos, cfg,
-                           n=cfg.num_layers)
+    if cfg.family == "ssm":
+        x = _decode_rwkv_stack(params["layers"], state, x, cfg)
+    else:
+        x = _decode_attn_stack(params["layers"], state["cache"], x, cur_pos,
+                               cfg, n=cfg.num_layers)
     hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     return _lm_logits(params, hidden, cfg), state
 
@@ -362,6 +402,21 @@ def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
         if cfg.post_block_norm:
             out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
         x = x + out
+    return x
+
+
+def _decode_rwkv_stack(stacked: Params, state: Params, x: torch.Tensor,
+                       cfg: ModelConfig):
+    """rwkv6's layers on one token, writing each layer's state in place."""
+    for i, lp in enumerate(_layers(stacked)):
+        x, wkv, xpa, xpf = L.rwkv6_decode_step(
+            lp["tm"], lp["cm"], x, cfg, state=state["wkv"][i],
+            x_prev_att=state["x_prev_att"][i],
+            x_prev_ffn=state["x_prev_ffn"][i], norm_att=lp["ln_att"],
+            norm_ffn=lp["ln_ffn"])
+        state["wkv"][i].copy_(wkv)
+        state["x_prev_att"][i].copy_(xpa)
+        state["x_prev_ffn"][i].copy_(xpf)
     return x
 
 

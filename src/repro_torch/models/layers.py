@@ -1,7 +1,8 @@
 """Layer library, the subset ported so far: RMSNorm, RoPE, attention (GQA /
 sliding window / softcap / qk-norm) for prefill and for cached decode, the
-SwiGLU MLP, and RWKV6's time mix and channel mix with the chunk-level
-linear recurrence they need (counterpart of ``repro.models.layers``).
+SwiGLU MLP, and RWKV6's time mix and channel mix (full-sequence and
+single-token decode) with the chunk-level linear recurrence they need
+(counterpart of ``repro.models.layers``).
 
 Functional style, as the reference: ``init_*`` builds a dict of tensors,
 ``apply_*`` consumes it, in the reference's layouts (``wq`` (d, H, hd),
@@ -352,7 +353,11 @@ def init_rwkv6(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 
 def _rwkv6_rkvwg(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
                  cfg: ModelConfig):
-    """Token-shift data-dependent mixing -> (r, k, v, log_w (fp32), g)."""
+    """Token-shift data-dependent mixing -> (r, k, v, log_w (fp32), g).
+
+    Decode's token-shift state `x_prev` is fp32: there the mixes, and the
+    products after them, run in fp32 on the weights cast to the compute
+    dtype, as the reference's mixed-dtype einsums promote."""
     dt = x.dtype
     # ddlerp: mix_i = x + (shifted - x) * (base_i + lora_i(x))
     lora_in = torch.einsum("...d,dml->...ml", x, p["mix_lora_a"].to(dt))
@@ -360,18 +365,18 @@ def _rwkv6_rkvwg(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
                         p["mix_lora_b"].to(dt))
     mixes = x[..., None, :] + (x_prev - x)[..., None, :] * (
         p["mix_base"].to(dt) + lora)                             # (..., 5, d)
+    w = lambda name: p[name].to(dt).to(mixes.dtype)
     xr, xk, xv, xw, xg = mixes.unbind(-2)
-    r = _heads_in(xr, p["w_r"])
-    k = _heads_in(xk, p["w_k"])
-    v = _heads_in(xv, p["w_v"])
-    dl = xw @ p["decay_lora_a"].to(dt)
-    dw = torch.einsum("...l,lhk->...hk", torch.tanh(dl),
-                      p["decay_lora_b"].to(dt))
+    r = _heads_in(xr, w("w_r"))
+    k = _heads_in(xk, w("w_k"))
+    v = _heads_in(xv, w("w_v"))
+    dl = xw @ w("decay_lora_a")
+    dw = torch.einsum("...l,lhk->...hk", torch.tanh(dl), w("decay_lora_b"))
     # Clip so per-step log-decay >= -e^1.6 ~= -4.95: keeps the chunked
     # factored form (k * exp(-cumdecay)) inside fp32 range for chunk<=16
     # (see kernels/rwkv6/ref.py stability note).
     log_w = -torch.exp(torch.clamp(p["decay_base"] + dw.float(), -8.0, 1.6))
-    g = F.silu(xg @ p["w_g"].to(dt))
+    g = F.silu(xg @ w("w_g"))
     return r, k, v, log_w, g
 
 
@@ -426,6 +431,36 @@ def rwkv6_channelmix(p: Params, x: torch.Tensor, x_prev: torch.Tensor
     kv = k @ p["w_v"].to(dt)
     r = torch.sigmoid(xk @ p["w_r"].to(dt))
     return r * kv
+
+
+def rwkv6_decode_step(p_tm: Params, p_cm: Params, x: torch.Tensor,
+                      cfg: ModelConfig, *, state: torch.Tensor,
+                      x_prev_att: torch.Tensor, x_prev_ffn: torch.Tensor,
+                      norm_att: Params, norm_ffn: Params):
+    """Single-token RWKV6 block step. x: (B, 1, d) in the compute dtype;
+    state: (B, H, hd, hd) fp32; x_prev_att / x_prev_ffn: (B, d) fp32.
+    Returns (out (B, 1, d) in x's dtype, new state, new x_prev_att, new
+    x_prev_ffn), the last three fp32. Nothing is written in place."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.ssm.head_dim
+    xa = apply_rmsnorm(norm_att, x, cfg.norm_eps)[:, 0]          # (B, d)
+    r, k, v, log_w, g = _rwkv6_rkvwg(p_tm, xa, x_prev_att, cfg)
+    rf, kf, vf = r.float(), k.float(), v.float()
+    u = p_tm["bonus"].float()
+    # o = r · (S + u ⊙ k vᵀ); S' = diag(w) S + k vᵀ
+    kv = kf[..., :, None] * vf[..., None, :]                     # (B,H,K,V)
+    o = torch.einsum("bhk,bhkv->bhv", rf, state + u[None, :, :, None] * kv)
+    new_state = torch.exp(log_w)[..., None] * state + kv
+    o = o.reshape(B, H * hd).to(x.dtype)
+    o = apply_rmsnorm(p_tm["ln_out"], o, cfg.norm_eps) * g
+    att_out = _heads_out(o.reshape(B, H, hd), p_tm["w_o"].to(x.dtype))
+    h = x[:, 0] + att_out
+    xf = apply_rmsnorm(norm_ffn, h[:, None], cfg.norm_eps)[:, 0]
+    ffn_out = rwkv6_channelmix(p_cm, xf, x_prev_ffn)
+    # the fp32 token-shift states promote the residual: cast it back so the
+    # next layer takes the compute dtype
+    out = (h + ffn_out).to(x.dtype)[:, None]
+    return out, new_state, xa.float(), xf.float()
 
 
 # --------------------------------------------------------------------------

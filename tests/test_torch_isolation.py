@@ -34,7 +34,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.tokens", "repro_torch.kernels.rwkv6.kernel",
             "repro_torch.kernels.rwkv6.ops",
             "repro_torch.kernels.rwkv6.ref", "repro_torch.core.baselines",
-            "repro_torch.core.privacy"} <= set(mods)
+            "repro_torch.core.privacy", "repro_torch.graphs",
+            "repro_torch.serve_collab.server",
+            "repro_torch.serve_collab.tables",
+            "repro_torch.launch.serve_collab"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -152,5 +155,8 @@ def test_cpu_fit_predict_score_end_to_end():
     acc = model.score(Xte, Yte)
     assert 0.0 <= acc <= 1.0
     assert model.transform(Xte[:5], 1, 1).shape == (5, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.serve()
+    srv = model.serve()                 # step 5, served on the port alone
+    req = srv.submit(Xte[:7], 1, 1)
+    out = srv.serve()
+    assert out.status[req.rid] == "done"
+    assert np.array_equal(out[req.rid].argmax(-1), model.predict(Xte[:7], 1, 1))

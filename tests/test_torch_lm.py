@@ -226,13 +226,22 @@ def test_param_count_equals_reference_for_dense():
 
 
 def test_unported_families_raise():
-    """Every family but dense raises on the serving path; every family but
-    dense and ssm (whose forward and loss are ported) raises at init."""
-    others = [c for c in tconfigs.ARCHS.values() if c.family != "dense"]
-    assert others and any(c.family == "ssm" for c in others)
+    """moe, hybrid, MLA and modality-prefix configs raise at init and on
+    the serving path; dense and ssm (rwkv6, whose prefill and decode are
+    ported) do not."""
+    archs = tconfigs.ARCHS.values()
+    others = [c for c in archs if c.family not in ("dense", "ssm")
+              or c.mla is not None or c.prefix_frontend]
+    assert {c.family for c in others} >= {"moe", "hybrid"}
+    assert any(c.mla is not None for c in others)
+    assert any(c.prefix_frontend for c in others)
     for cfg in others:
-        if cfg.family != "ssm":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tbb.init_params(cfg, None, device="meta")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbb.init_params(cfg, None, device="meta")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbb.init_decode_state(cfg, 1, 8, device="cpu")
+    ported = [c for c in archs if c not in others]
+    assert {c.family for c in ported} == {"dense", "ssm"}
+    for cfg in ported:
+        state = tbb.init_decode_state(cfg, 1, 8, device="meta")
+        assert state

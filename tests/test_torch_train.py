@@ -260,12 +260,17 @@ def test_unported_losses_raise():
         batch = {k: torch.tensor(v) for k, v in _batch(6, 1, 8).items()}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbb.loss_fn({}, batch, cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbb.prefill({}, torch.zeros((1, 4), dtype=torch.int32), cfg,
+                        cache_len=8)
+    # rwkv6's serving path is ported: its decode state is the fp32
+    # recurrence and token-shift states (tests/test_torch_rwkv6_serve.py)
     cfg = tconfigs.REDUCED[ARCH]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbb.init_decode_state(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbb.prefill({}, torch.zeros((1, 4), dtype=torch.int32), cfg,
-                    cache_len=8)
+    state = tbb.init_decode_state(cfg, 3, 8, device="cpu")
+    L, d, H, hd = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.ssm.head_dim
+    assert {k: tuple(v.shape) for k, v in state.items()} == {
+        "wkv": (L, 3, H, hd, hd), "x_prev_att": (L, 3, d),
+        "x_prev_ffn": (L, 3, d)}
 
 
 # --------------------------------------------------------------------------
