@@ -36,10 +36,18 @@ these paths through the port's public entry points:
   layer), its loss held against the plain WKV6 path of the same model in
   fp32; then rwkv6-3b served on the trained params: a bf16 prefill (the
   chunked plain form, no WKV6 launch), decode and BatchedServer eager and
-  captured, and prefill + decode held to forward in fp32.
+  captured, and prefill + decode held to forward in fp32; then FedDCL's
+  federated training on those params: 2 silos x 2 local steps a round at
+  full width (bf16 AdamW moments, so two silos fit), one round step by
+  step, two through make_federated_round_step and two in one
+  make_federated_multiround_step call, the silos compared before and
+  after each sync and the fedavg / median / Krum syncs timed alone; and
+  the reduced train() CLI on the card, dense (plain attention) and
+  federated with a checkpoint read back.
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
-the server, the train step) give min / median / max over repeats. The line
+the server, the train step, the federated rounds) give min / median / max
+over repeats. The line
 before the last lists every kernel with its launches on the main path,
 error and times; the last line is {"ok": true, "device": {...}}. Any failure exits non-zero before it.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -53,7 +61,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import replace
 from functools import partial
 from pathlib import Path
 
@@ -71,14 +81,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.api import FedDCL  # noqa: E402
-from repro_torch.configs import ARCHS, InputShape, TrainConfig  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.configs import (ARCHS, REDUCED,  # noqa: E402
+                                 FederatedConfig, InputShape, TrainConfig)
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.federated import (PlanCache,  # noqa: E402
                                         clear_plan_cache, padded_layout,
                                         plan_cache_stats, round_perms,
-                                        run_federated)
+                                        run_federated, silo_replicate)
 from repro_torch.data.partition import split_iid  # noqa: E402
-from repro_torch.data.tokens import TokenStream  # noqa: E402
+from repro_torch.data.tokens import TokenStream, silo_batches  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
@@ -89,8 +101,13 @@ from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
+                                      make_fedavg_sync_step,
+                                      make_federated_local_step,
+                                      make_federated_multiround_step,
+                                      make_federated_round_step,
                                       make_prefill_step, make_serve_step,
-                                      make_train_step)
+                                      make_train_step, silo_opt_init)
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -156,6 +173,16 @@ SERVE_TOL = 2e-5
 RWKV_PREFILL_B, RWKV_PREFILL_S = 4, 1024
 RWKV_CHECK_S = 1024      # fp32 prefill(S-1) + decode vs forward, B = 1
 GRAPH_TOL = 1e-6         # captured vs eager decode logits, relative
+# FedDCL's federated round on rwkv6-3b at full width and depth: FED_D silos
+# x FED_H local steps of FED_B x TRAIN_S tokens a silo (the WKV6 kernels'
+# train shape). AdamW's moments in bf16, TrainConfig's setting for large
+# models: with fp32 moments two silos do not fit one card beside one
+# silo's gradients
+FED_D, FED_H, FED_B = 2, 2, 2
+FED_ROUND_STEPS, FED_R = 2, 2   # rounds through round_step, then multi_step's R
+FED_SAMPLE = 1 << 20     # elements of each sampled leaf held to the float64 mean
+FED_MEAN_TOL = 1e-6      # fedavg vs the float64 mean of the silos, relative
+FED_SYNCS = ("fedavg", "median", "krum")
 # steps of the new decode rows' profiled runs and captured-vs-eager gap: the
 # profiler's post-processing grows with the kernels it saw (rwkv6-3b runs
 # ~2,800 a step)
@@ -1698,6 +1725,254 @@ def phase_rwkv6_serve(dev, params):
     return row
 
 
+# -- phase 11: FedDCL's federated rwkv6-3b training at full width ---------
+
+def silos_equal(tree) -> bool:
+    return all(torch.equal(a[i], a[0]) for a in tree_leaves(tree)
+               for i in range(1, a.shape[0]))
+
+
+def state_zeroed(tree) -> bool:
+    return all(not bool(t.any()) for t in tree_leaves(tree))
+
+
+def fed_batches(cfg, rounds):
+    """Per-silo TokenStream batches of the given rounds, (R, H, d, b, S)."""
+    out = [[silo_batches(cfg.vocab_size, TRAIN_S, FED_B, FED_D,
+                         r * FED_H + h, seed=0) for h in range(FED_H)]
+           for r in rounds]
+    return {k: np.stack([np.stack([b[k] for b in rnd]) for rnd in out])
+            for k in out[0][0]}
+
+
+def phase_rwkv6_federated(dev, sp, train_row):
+    """FedDCL's launch tier on rwkv6-3b at full width and depth: FED_D
+    silos, each FED_H local steps a round, then the round boundary, from
+    the trained params stacked per silo (`sp`, contiguous: the steps write
+    each silo's slice in place). Round 0 runs step by step (the local steps
+    timed, the silos compared before and after the sync), then
+    FED_ROUND_STEPS rounds through round_step and FED_R rounds in one
+    multi_step call; then one profiled local step, one profiled fedavg
+    sync, and the three aggregators' syncs timed alone. Then the reduced
+    train() CLI on the card: llama3.2-1b (plain attention) and the
+    federated rwkv6-3b with both dispatch forms, a trailing phase and a
+    checkpoint read back."""
+    cfg = RWKV
+    fed = FederatedConfig(num_silos=FED_D, local_steps=FED_H)
+    n_rounds = 1 + FED_ROUND_STEPS + FED_R
+    tc = TrainConfig(model=cfg, shape=InputShape("chip", TRAIN_S,
+                                                 FED_D * FED_B, "train"),
+                     federated=fed, warmup_steps=2,
+                     total_steps=n_rounds * FED_H,
+                     opt_state_dtype="bfloat16")
+    local_step, opt = make_federated_local_step(cfg, tc, device=dev)
+    round_step, _ = make_federated_round_step(cfg, tc, device=dev)
+    multi_step, _ = make_federated_multiround_step(cfg, tc, device=dev)
+    syncs = {agg: make_fedavg_sync_step(
+        replace(tc, federated=replace(fed, aggregator=agg)), device=dev)
+        for agg in FED_SYNCS}
+    so = silo_opt_init(opt, sp)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    leaves = tree_leaves(sp)
+    tokens_per_round = FED_D * FED_H * FED_B * TRAIN_S
+    expect = (FED_D * FED_H * 2 * cfg.num_layers,
+              FED_D * FED_H * cfg.num_layers)
+
+    plain_calls = []
+    plain_chunked = wkv_ops.ref.wkv6_chunked
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain_chunked(*a, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    losses, step_s, launches, equal_after_sync = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    alloc_before = torch.cuda.memory_stats()
+    wkv_kernel.reset_launches()
+    wkv_ops.ref.wkv6_chunked = counted
+    try:
+        # round 0, step by step
+        b0 = tree_map(lambda a: a[0], fed_batches(cfg, [0]))
+        t_first = time.perf_counter()
+        for h in range(FED_H):
+            (sp, so, m), t = timed(lambda: local_step(
+                sp, so, tree_map(lambda a: a[h], b0)))
+            step_s.append(t / FED_D)
+            losses += m["loss"].flatten().tolist()
+            if h == 0:
+                differing = sum(not torch.equal(a[0], a[1]) for a in leaves)
+        sample = leaves[::5]
+        pre = [a.view(FED_D, -1)[:, :FED_SAMPLE].double().mean(0)
+               for a in sample]
+        (sp, so), sync0_s = timed(lambda: syncs["fedavg"](sp, so))
+        first_round_s = time.perf_counter() - t_first
+        equal_after_sync.append(silos_equal(sp))
+        zeroed = state_zeroed(so)
+        mean_rel = max(rel(a.view(FED_D, -1)[0, :FED_SAMPLE].cpu(), p.cpu())
+                       for a, p in zip(sample, pre))
+        del pre
+        launches.append((wkv_kernel.launches, wkv_kernel.grad_launches))
+
+        round_s = []
+        for rnd in range(1, 1 + FED_ROUND_STEPS):
+            before = (wkv_kernel.launches, wkv_kernel.grad_launches)
+            b = tree_map(lambda a: a[0], fed_batches(cfg, [rnd]))
+            (sp, so, m), t = timed(lambda: round_step(sp, so, b))
+            round_s.append(t)
+            losses += m["loss"].flatten().tolist()
+            equal_after_sync.append(silos_equal(sp))
+            launches.append((wkv_kernel.launches - before[0],
+                             wkv_kernel.grad_launches - before[1]))
+
+        before = (wkv_kernel.launches, wkv_kernel.grad_launches)
+        mb = fed_batches(cfg, range(1 + FED_ROUND_STEPS, n_rounds))
+        (sp, so, mm), multi_s = timed(lambda: multi_step(sp, so, mb))
+        losses += mm["loss"].flatten().tolist()
+        equal_after_sync.append(silos_equal(sp))
+        launches += [tuple((n - b_) / FED_R for n, b_ in zip(
+            (wkv_kernel.launches, wkv_kernel.grad_launches), before))] * FED_R
+    finally:
+        wkv_ops.ref.wkv6_chunked = plain_chunked
+    fed_launches = wkv_kernel.launches
+    fed_bwd_launches = wkv_kernel.grad_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    alloc = {k: torch.cuda.memory_stats()[k] - alloc_before[k] for k in
+             ("num_alloc_retries", "num_device_alloc", "num_device_free")}
+    alloc["max_memory_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    multi_shape = tuple(mm["loss"].shape)
+
+    # one local step and one fedavg sync under the profiler, then each
+    # aggregator's sync alone (the silos are equal by then: a sync's work
+    # does not depend on its values)
+    b = tree_map(lambda a: a[0, 0], fed_batches(cfg, [n_rounds]))
+    step_wall, step_dev, step_kernels, _ = profile_device(
+        lambda: local_step(sp, so, b))
+    sync_wall, sync_dev, sync_kernels, _ = profile_device(
+        lambda: syncs["fedavg"](sp, so))
+    sync_ms = {}
+    for agg in FED_SYNCS:
+        _, t = timed(lambda: syncs[agg](sp, so))
+        sync_ms[agg] = t * 1e3
+        check(silos_equal(sp) and state_zeroed(so),
+              f"silos or optimizer state after a timed {agg} sync")
+    del sp, so
+    torch.cuda.empty_cache()
+
+    # the reduced train() CLI on the card
+    before = fa_kernel.launches()
+    wkv_kernel.reset_launches()
+    (_, dense_hist), dense_s = timed(lambda: train(
+        "llama3.2-1b", reduced=True, steps=4, log_every=1, device=dev))
+    dense_flash = fa_kernel.launches() - before
+    wkv_kernel.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "rwkv6-3b-reduced.npz")
+        (params, fed_hist), fed_cli_s = timed(lambda: train(
+            "rwkv6-3b", reduced=True, silos=2, local_steps=2, steps=11,
+            rounds_per_dispatch=2, log_every=1, checkpoint_path=ck,
+            device=dev))
+        restored = store.load(ck, params)
+        ck_equal = all(torch.equal(a, b_) for a, b_ in
+                       zip(tree_leaves(params), tree_leaves(restored)))
+        ck_meta = store.load_metadata(ck)
+    small = REDUCED["rwkv6-3b"]
+    cli_launches = (wkv_kernel.launches, wkv_kernel.grad_launches)
+    cli_expect = (11 * 2 * small.num_layers, 11 * 2 * small.num_layers)
+
+    med_round = statistics.median(round_s)
+    row = {"phase": "rwkv6_federated", "arch": cfg.name,
+           "params": cfg.param_count(), "silos": FED_D, "local_steps": FED_H,
+           "per_silo_batch": FED_B, "seq": TRAIN_S,
+           "train_config": {"param_dtype": tc.param_dtype,
+                            "compute_dtype": tc.compute_dtype,
+                            "opt_state_dtype": tc.opt_state_dtype,
+                            "remat": tc.remat, "aggregator": fed.aggregator},
+           "cut": "AdamW moments in bf16 (the rwkv6_train row keeps fp32)",
+           "rounds": {"first (step by step)": 1,
+                      "round_step": FED_ROUND_STEPS, "multi_step": FED_R},
+           "stacked_params_and_opt_state_gb": state_gb,
+           "max_memory_allocated_gb": peak_gb,
+           # the caching allocator over the rounds: a retry frees its
+           # cached blocks (a device sync) and calls cudaMalloc again
+           "allocator": alloc,
+           "first_round_s": first_round_s,
+           "round_s": spread(round_s),
+           "multi_step_s": multi_s, "multi_step_s_per_round": multi_s / FED_R,
+           "local_step_s_per_silo": spread(step_s),
+           "baseline_step_s": train_row["steady_step_s"],
+           "federated_train_tokens_per_s": tokens_per_round / med_round,
+           "baseline_train_tokens_per_s": train_row["train_tokens_per_s"],
+           "sync_ms": sync_ms, "first_fedavg_sync_ms": sync0_s * 1e3,
+           "losses": losses,
+           "silo_leaves_differing_after_first_local_step":
+               [differing, len(leaves)],
+           "silos_bitwise_equal_after_each_sync": equal_after_sync,
+           "fedavg_vs_float64_mean_rel": mean_rel,
+           "opt_state_zero_after_fedavg": zeroed,
+           "multi_step_metrics_shape": multi_shape,
+           "wkv6_launches_per_round": [list(x) for x in launches],
+           "wkv6_launches_per_round_expected": list(expect),
+           "wkv6_launches": fed_launches,
+           "wkv6_bwd_launches": fed_bwd_launches,
+           "plain_chunked_calls": len(plain_calls),
+           "profiled_local_step": {
+               "wall_s": step_wall, "device_s": sum(step_dev.values()),
+               "device_busy_share": sum(step_dev.values()) / step_wall,
+               "kernels": step_kernels},
+           "profiled_fedavg_sync": {
+               "wall_s": sync_wall, "device_s": sum(sync_dev.values()),
+               "device_busy_share": sum(sync_dev.values()) / sync_wall,
+               "kernels": sync_kernels},
+           "train_cli": {
+               "dense": {"arch": "llama3.2-1b", "reduced": True, "steps": 4,
+                         "s": dense_s, "flash_launches": dense_flash,
+                         "losses": [r["loss"] for r in dense_hist]},
+               "federated": {"arch": "rwkv6-3b", "reduced": True,
+                             "silos": 2, "local_steps": 2, "steps": 11,
+                             "rounds_per_dispatch": 2, "s": fed_cli_s,
+                             "logged_steps": [r["step"] for r in fed_hist],
+                             "losses": [r["loss"] for r in fed_hist],
+                             "wkv6_launches": list(cli_launches),
+                             "checkpoint_reads_back_bitwise": ck_equal,
+                             "checkpoint_metadata": ck_meta}}}
+    emit(row)
+    check(all(np.isfinite(losses)), f"federated losses {losses}")
+    check(differing > 0, "the silos' params did not part after the first "
+          "local step: the stack aliases one storage")
+    check(all(equal_after_sync), f"silos after each sync: {equal_after_sync}")
+    check(mean_rel <= FED_MEAN_TOL,
+          f"fedavg vs the float64 mean of the silos: {mean_rel}")
+    check(zeroed, "the optimizer state after a fedavg sync is not zero")
+    check(multi_shape == (FED_R, FED_H),
+          f"multi_step's metrics shape {multi_shape}")
+    check(all(tuple(x) == expect for x in launches),
+          f"wkv6 launches per round {launches}, expected {expect}")
+    check(not plain_calls,
+          f"the plain chunked form ran {len(plain_calls)} times")
+    check(dense_flash == 0 and all(np.isfinite(r["loss"])
+                                   for r in dense_hist)
+          and [r["step"] for r in dense_hist] == [0, 1, 2, 3],
+          f"dense train() on the card: {row['train_cli']['dense']}")
+    check([r["step"] for r in fed_hist] == list(range(11))
+          and all(np.isfinite(r["loss"]) for r in fed_hist),
+          f"federated train() on the card: {row['train_cli']['federated']}")
+    check(cli_launches == cli_expect,
+          f"wkv6 launches of the federated train(): {cli_launches}, "
+          f"expected {cli_expect}")
+    check(ck_equal and ck_meta == {"arch": small.name, "steps": 11,
+                                   "reduced": True},
+          f"the federated train()'s checkpoint: {ck_equal}, {ck_meta}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1731,7 +2006,14 @@ def main() -> int:
     wkv_rows = phase_wkv6_check(dev, peak)
     train_row, rwkv_params = phase_rwkv6_train(dev, wkv_rows[0])
     rwkv_serve_row = phase_rwkv6_serve(dev, rwkv_params)
+    # the federated phase's silo stack owns its storage (the steps write
+    # each silo's slice in place); the trained params go before its
+    # optimizer state is made
+    sp = tree_map(lambda a: a.contiguous(), silo_replicate(rwkv_params, FED_D))
     del rwkv_params
+    torch.cuda.empty_cache()
+    fed_row = phase_rwkv6_federated(dev, sp, train_row)
+    del sp
     main_rows = rows[:len(MAIN_SHAPES)]
 
     def per_fit(key):
@@ -1812,7 +2094,9 @@ def main() -> int:
         "bound_by": wkv_main["bound_by"], "library_ms": None,
         # serving: prefill needs the final state and takes the chunked
         # plain form, as the reference's prefill does
-        "serving_launches": rwkv_serve_row["bf16"]["prefill_wkv6_launches"]}, {
+        "serving_launches": rwkv_serve_row["bf16"]["prefill_wkv6_launches"],
+        # FedDCL's federated rounds (phase rwkv6_federated), counted from 0
+        "federated_launches": fed_row["wkv6_launches"]}, {
         "name": "wkv6_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
         "replaces": "none: the reference has no backward kernel; it takes "
@@ -1824,7 +2108,8 @@ def main() -> int:
         # the plain version: autograd of the chunked form, recomputed
         "plain_ms": n_bwd * wkv_main["backward_recompute_ms"],
         "bound_ms": n_bwd * wkv_main["backward_bound_ms"],
-        "bound_by": wkv_main["backward_bound_by"], "library_ms": None}]})
+        "bound_by": wkv_main["backward_bound_by"], "library_ms": None,
+        "federated_bwd_launches": fed_row["wkv6_bwd_launches"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -238,25 +238,37 @@ def masked_trimmed_mean(vals: torch.Tensor, mask: torch.Tensor,
     return kept / torch.clamp(k - 2 * t, min=1).float()
 
 
+def krum_distances(flat: torch.Tensor) -> torch.Tensor:
+    """(d, d) squared distances between the rows of (d, P) flattened silo
+    updates. Distances add over coordinates, so a caller that cannot hold
+    the whole (d, P) may sum this over column pieces."""
+    f32 = flat.float()
+    sq = torch.sum(f32 * f32, dim=1)
+    return sq[:, None] + sq[None, :] - 2.0 * (f32 @ f32.T)
+
+
 def krum_select(flat: torch.Tensor, mask: torch.Tensor,
                 krum_f: int) -> torch.Tensor:
     """Krum selection index (a 0-dim device tensor) over (d, P) flattened
     silo updates: each valid silo is scored by the sum of its squared
     distances to its k−f−2 nearest valid peers; the lowest score wins
     (Blanchard et al., NeurIPS'17)."""
-    d = flat.shape[0]
-    f32 = flat.float()
-    sq = torch.sum(f32 * f32, dim=1)
-    dist = sq[:, None] + sq[None, :] - 2.0 * (f32 @ f32.T)
+    return krum_pick(krum_distances(flat), mask, krum_f)
+
+
+def krum_pick(dist: torch.Tensor, mask: torch.Tensor,
+              krum_f: int) -> torch.Tensor:
+    """``krum_select`` from the (d, d) squared distances."""
+    d = dist.shape[0]
     valid = mask > 0
     pair = valid[:, None] & valid[None, :] & ~torch.eye(
-        d, dtype=torch.bool, device=flat.device)
+        d, dtype=torch.bool, device=dist.device)
     dist = torch.where(pair, torch.clamp(dist, min=0.0), _MASK_BIG)
     k = torch.sum(mask).to(torch.int32)
     nn = torch.minimum(torch.clamp(k - int(krum_f) - 2, min=1),
                        torch.clamp(k - 1, min=1))
     sd = torch.sort(dist, dim=1).values
-    neighbor = torch.arange(d, dtype=torch.int32, device=flat.device)[None, :] < nn
+    neighbor = torch.arange(d, dtype=torch.int32, device=dist.device)[None, :] < nn
     scores = torch.sum(torch.where(neighbor, sd, 0.0), dim=1)
     scores = torch.where(valid, scores, float("inf"))
     return torch.argmin(scores)

@@ -1,7 +1,7 @@
 """Step functions (counterpart of ``repro.launch.steps``): the
-baseline train step, the prefill step and the serve (decode) step, eager
-or captured. The federated round steps are not ported yet (ROADMAP.md,
-Queue 1).
+baseline train step, FedDCL's federated local / phase / round / multiround
+steps and their round boundary, the prefill step and the serve (decode)
+step, eager or captured.
 
 ``make_*`` fixes the device (CUDA unless the caller asks for the CPU) and
 the step moves its token inputs there, so a caller can hand over NumPy.
@@ -16,6 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.federated import (AGGREGATORS, ROBUST_AGGREGATORS,
+                                        krum_distances, krum_pick,
+                                        masked_median, masked_trimmed_mean,
+                                        scan_local_steps)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import capture
 from repro_torch.models import backbone as bb
@@ -192,3 +196,187 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
         return params, opt_state, metrics
 
     return train_step, opt
+
+
+# --------------------------------------------------------------------------
+# FedDCL's federated round (the launch tier of the paper's technique)
+# --------------------------------------------------------------------------
+#
+# Silo-stacked trees carry a leading silo dim d, as the reference's. Where
+# the reference vmaps the baseline step over that dim, the port loops over
+# it: each silo runs make_train_step's in-place step on views of its slice
+# of the stacked params and moments, so one silo's gradients exist at a
+# time (a full-width rwkv6-3b gradient tree is 12.6 GB). The steps and the
+# sync write the stacks in place, so every stacked leaf must own its
+# storage: silo_replicate's broadcast views share one storage across silos,
+# and a step on one silo's view would write them all.
+
+def silo_opt_init(opt, silo_params: Any) -> Any:
+    """``opt.init`` over silo-stacked params (the reference's
+    ``jax.vmap(opt.init)``): the moments stacked as the params are, and
+    one step counter per silo, shape (d,)."""
+    state = opt.init(silo_params)
+    d = tree_leaves(silo_params)[0].shape[0]
+    state["step"] = state["step"].expand(d).contiguous()
+    return state
+
+
+def _check_stacked(tree: Any) -> None:
+    for a in tree_leaves(tree):
+        if not a.is_contiguous():
+            raise ValueError(
+                "silo-stacked leaves must be contiguous: the federated steps "
+                "write each silo's slice in place (clone silo_replicate's "
+                "broadcast views first)")
+
+
+def _silo(tree: Any, i: int) -> Any:
+    return tree_map(lambda a: a[i], tree)
+
+
+def _stack(trees) -> Any:
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def make_federated_local_step(cfg: ModelConfig, tc: TrainConfig, *,
+                              use_kernels: bool = True,
+                              device: DeviceLike = None
+                              ) -> Tuple[Callable, Any]:
+    """FedDCL's LOCAL step: the baseline step on every silo, with no
+    cross-silo communication. ``local_step(silo_params, silo_opt_state,
+    batch) -> (silo_params, silo_opt_state, metrics)``: params and state
+    lead with the silo dim d and are updated in place; `batch` leads with
+    (d, local_batch, ...); each metric comes back with shape (d,)."""
+    train_step, opt = make_train_step(cfg, tc, use_kernels=use_kernels,
+                                      device=device)
+
+    def local_step(silo_params, silo_opt_state, batch):
+        _check_stacked(silo_params)
+        _check_stacked(silo_opt_state)
+        d = tree_leaves(silo_params)[0].shape[0]
+        ms = []
+        for i in range(d):
+            state = {k: v[i] if k == "step" else _silo(v, i)
+                     for k, v in silo_opt_state.items()}
+            _, state, m = train_step(_silo(silo_params, i), state,
+                                     _silo(batch, i))
+            # the step rebinds the counter of the per-silo dict only
+            silo_opt_state["step"][i] = state["step"]
+            ms.append(m)
+        return silo_params, silo_opt_state, _stack(ms)
+
+    return local_step, opt
+
+
+def make_federated_local_phase_step(cfg: ModelConfig, tc: TrainConfig, *,
+                                    use_kernels: bool = True,
+                                    device: DeviceLike = None
+                                    ) -> Tuple[Callable, Any]:
+    """H silo-local steps WITHOUT the sync boundary: `batches` lead with
+    (H, d, ...), metrics come back (H, d). ``train`` runs it for the
+    trailing steps of an unfinished round."""
+    local_step, opt = make_federated_local_step(
+        cfg, tc, use_kernels=use_kernels, device=device)
+
+    def phase(silo_params, silo_opt_state, batches):
+        return scan_local_steps(local_step, silo_params, silo_opt_state,
+                                batches)
+
+    return phase, opt
+
+
+def _silo_columns(a: torch.Tensor):
+    """A stacked leaf as (d, n) views of its columns, each of at most about
+    OPT_PIECE elements: the aggregators are elementwise over d, so a
+    piece's result is the whole leaf's on those columns."""
+    flat = a.view(a.shape[0], -1)
+    return flat.split(max(1, OPT_PIECE // a.shape[0]), dim=1)
+
+
+def make_fedavg_sync_step(tc: TrainConfig, *,
+                          device: DeviceLike = None) -> Callable:
+    """The round boundary, ``sync(silo_params, silo_opt_state) ->
+    (silo_params, silo_opt_state)``, in place: every silo's params become
+    the configured aggregate (``core.federated.robust_sync``'s semantics:
+    the unweighted mean for fedavg / fedprox / fedsgd, else the median,
+    trimmed mean or Krum's pick over all silos), leaf by leaf and piece by
+    piece, so no second copy of the stack is held. Krum sums its (d, d)
+    distances over the pieces, then copies the chosen silo. For fedavg and
+    the robust aggregators the whole optimizer state, step counter
+    included, is then zeroed, as the reference's sync does (so the
+    learning-rate warm-up restarts every round); fedprox and fedsgd keep
+    it."""
+    fed = tc.federated
+    if fed.aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {fed.aggregator!r}; choose "
+                         f"one of {AGGREGATORS}")
+    dev = resolve_device(device)
+
+    def aggregate(cols, mask):
+        if fed.aggregator == "median":
+            return masked_median(cols, mask)
+        if fed.aggregator == "trimmed_mean":
+            return masked_trimmed_mean(cols, mask, fed.trim_frac)
+        return torch.mean(cols.float(), dim=0)
+
+    @torch.no_grad()
+    def sync(silo_params, silo_opt_state):
+        _check_stacked(silo_params)
+        leaves = tree_leaves(silo_params)
+        mask = torch.ones((leaves[0].shape[0],), dtype=torch.float32,
+                          device=dev)
+        pieces = [c for a in leaves for c in _silo_columns(a)]
+        if fed.aggregator == "krum":
+            best = krum_pick(sum(krum_distances(c) for c in pieces), mask,
+                             fed.krum_f)
+            for c in pieces:
+                c.copy_(c.index_select(0, best.reshape(1)))
+        else:
+            for c in pieces:
+                c.copy_(aggregate(c, mask).to(c.dtype)[None])
+        if fed.aggregator == "fedavg" or fed.aggregator in ROBUST_AGGREGATORS:
+            for t in tree_leaves(silo_opt_state):
+                t.zero_()
+        return silo_params, silo_opt_state
+
+    return sync
+
+
+def make_federated_round_step(cfg: ModelConfig, tc: TrainConfig, *,
+                              use_kernels: bool = True,
+                              device: DeviceLike = None
+                              ) -> Tuple[Callable, Any]:
+    """One FULL FedDCL round: the H-step local phase, then the sync.
+    `batches` lead with (H, d, ...); metrics come back (H, d)."""
+    phase, opt = make_federated_local_phase_step(
+        cfg, tc, use_kernels=use_kernels, device=device)
+    sync = make_fedavg_sync_step(tc, device=device)
+
+    def round_step(silo_params, silo_opt_state, batches):
+        sp, so, ms = phase(silo_params, silo_opt_state, batches)
+        sp, so = sync(sp, so)
+        return sp, so, ms
+
+    return round_step, opt
+
+
+def make_federated_multiround_step(cfg: ModelConfig, tc: TrainConfig, *,
+                                   use_kernels: bool = True,
+                                   device: DeviceLike = None
+                                   ) -> Tuple[Callable, Any]:
+    """R full rounds in one call: `batches` lead with (R, H, d, ...);
+    metrics come back as (R, H) scalars, each silo-meaned per round, as
+    the reference's scan keeps them (``train``'s
+    ``--rounds-per-dispatch``)."""
+    round_step, opt = make_federated_round_step(
+        cfg, tc, use_kernels=use_kernels, device=device)
+
+    def multiround(silo_params, silo_opt_state, batches):
+        sp, so, out = silo_params, silo_opt_state, []
+        for r in range(tree_leaves(batches)[0].shape[0]):
+            sp, so, ms = round_step(sp, so, _silo(batches, r))
+            out.append(tree_map(
+                lambda a: torch.mean(a.reshape(a.shape[0], -1), dim=1), ms))
+        return sp, so, _stack(out)
+
+    return multiround, opt

@@ -1,15 +1,20 @@
-"""Training entry point, the baseline data-parallel branch (counterpart of
-``repro.launch.train``): random weights from the seed, the synthetic
-``TokenStream``, ``make_train_step`` each step, the loss logged every
-`log_every` steps. Runs on CUDA unless ``device="cpu"`` is asked for.
+"""Training entry point (counterpart of ``repro.launch.train``): baseline
+data-parallel OR FedDCL federated (silo-local steps + periodic cross-silo
+aggregation), random weights from the seed, the synthetic token pipeline,
+the loss logged every `log_every` steps, the final params optionally
+written by ``checkpoint.store``. Runs on CUDA unless ``device="cpu"`` is
+asked for.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
-FedDCL federated branch (``silos > 1``; ``local_steps``,
-``rounds_per_dispatch`` and ``non_iid`` belong to it) and ``--checkpoint``.
+Training runs a kernel only where it has a gradient: the WKV6 kernels do
+(the ssm family), the flash-attention kernel does not, so a dense model
+trains on the plain attention path, as the reference's ``train`` does.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
       --reduced --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --reduced --steps 11 --silos 2 --local-steps 2 \\
+      --rounds-per-dispatch 2 --checkpoint ck.npz --device cpu
 """
 from __future__ import annotations
 
@@ -18,14 +23,18 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import ARCHS, REDUCED
 from repro_torch.configs.base import FederatedConfig, InputShape, TrainConfig
-from repro_torch.data.tokens import TokenStream
+from repro_torch.core.federated import silo_replicate
+from repro_torch.data.tokens import TokenStream, silo_batches
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import backbone as bb
+from repro_torch.tree import tree_map
 
 
 def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
@@ -35,14 +44,6 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
           log_every: int = 10, checkpoint_path: str | None = None,
           log_path: str | None = None, param_dtype: str = "float32",
           compute_dtype: str = "float32", device: DeviceLike = None):
-    if silos > 1:
-        raise NotImplementedError(
-            "train(silos > 1): the FedDCL federated round steps are not "
-            "ported yet. See ROADMAP.md, Queue 1")
-    if checkpoint_path:
-        raise NotImplementedError(
-            "train(checkpoint_path=...): checkpoint/store.py is not ported "
-            "yet. See ROADMAP.md, Queue 1")
     dev = resolve_device(device)
     cfg = (REDUCED if reduced else ARCHS)[arch]
     shape = InputShape("cli", seq_len=seq, global_batch=batch, kind="train")
@@ -57,22 +58,91 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
     n_params = bb.count_params_analytic(cfg)
     print(f"arch={cfg.name} params={n_params/1e6:.2f}M silos={silos} "
           f"H={local_steps} batch={batch}x{seq} device={dev}")
+    # only a kernel with a gradient may run here: WKV6 has one, flash
+    # attention has none
+    kw = dict(use_kernels=cfg.family == "ssm", device=dev)
 
     history = []
-    step_fn, opt = steps_lib.make_train_step(cfg, tc, device=dev)
-    opt_state = opt.init(params)
-    stream = TokenStream(cfg.vocab_size, seq, batch, seed=seed)
     t0 = time.perf_counter()
-    for step in range(steps):
-        params, opt_state, metrics = step_fn(params, opt_state,
-                                             stream.batch(step))
+
+    def log(step, loss):
+        """Record `loss` (a tensor, silo-meaned) on logged steps only: the
+        conversion waits for the device."""
         if step % log_every == 0 or step == steps - 1:
-            rec = {"step": step, "loss": float(metrics["loss"]),
+            rec = {"step": step, "loss": float(torch.mean(loss)),
                    "elapsed_s": time.perf_counter() - t0}
             history.append(rec)
             print(f"step {step:5d} loss {rec['loss']:.4f} "
                   f"({rec['elapsed_s']:.1f}s)")
 
+    if silos > 1:
+        if batch % silos:
+            raise ValueError(f"batch {batch} is not a multiple of silos "
+                             f"{silos}")
+        round_step, opt = steps_lib.make_federated_round_step(cfg, tc, **kw)
+        # the steps write each silo's slice in place: the stack owns its
+        # storage, not silo_replicate's shared broadcast view
+        sp = tree_map(lambda a: a.contiguous(), silo_replicate(params, silos))
+        del params
+        so = steps_lib.silo_opt_init(opt, sp)
+
+        def stacked_batches(step0, h):
+            """h consecutive per-silo batches, stacked with leading dim h."""
+            nbs = [silo_batches(cfg.vocab_size, seq, batch // silos, silos,
+                                step0 + i, seed=seed, non_iid=non_iid)
+                   for i in range(h)]
+            return {k: np.stack([nb[k] for nb in nbs]) for k in nbs[0]}
+
+        def log_round(step0, metrics):
+            for i in range(int(metrics["loss"].shape[0])):
+                log(step0 + i, metrics["loss"][i])
+
+        rpd = max(rounds_per_dispatch, 1)
+        if rpd > 1:
+            multi_step, _ = steps_lib.make_federated_multiround_step(
+                cfg, tc, **kw)
+
+            def multiround_batches(step0, r, h):
+                bs = [stacked_batches(step0 + i * h, h) for i in range(r)]
+                return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+
+        n_rounds = steps // local_steps
+        rnd = 0
+        while rnd < n_rounds:
+            step0 = rnd * local_steps
+            if rpd > 1 and n_rounds - rnd >= rpd:
+                sp, so, metrics = multi_step(
+                    sp, so, multiround_batches(step0, rpd, local_steps))
+                for r in range(rpd):
+                    log_round(step0 + r * local_steps,
+                              tree_map(lambda a, r=r: a[r], metrics))
+                rnd += rpd
+            else:
+                sp, so, metrics = round_step(
+                    sp, so, stacked_batches(step0, local_steps))
+                log_round(step0, metrics)
+                rnd += 1
+        rem = steps % local_steps
+        if rem:
+            # the trailing steps of an unfinished round: local steps, no sync
+            phase, _ = steps_lib.make_federated_local_phase_step(cfg, tc, **kw)
+            sp, so, metrics = phase(sp, so, stacked_batches(steps - rem, rem))
+            log_round(steps - rem, metrics)
+        params = tree_map(lambda a: a[0].clone(), sp)
+        del sp, so
+    else:
+        step_fn, opt = steps_lib.make_train_step(cfg, tc, **kw)
+        opt_state = opt.init(params)
+        stream = TokenStream(cfg.vocab_size, seq, batch, seed=seed)
+        for step in range(steps):
+            params, opt_state, metrics = step_fn(params, opt_state,
+                                                 stream.batch(step))
+            log(step, metrics["loss"])
+
+    if checkpoint_path:
+        store.save(checkpoint_path, params,
+                   {"arch": cfg.name, "steps": steps, "reduced": reduced})
+        print(f"checkpoint -> {checkpoint_path}")
     if log_path:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
         with open(log_path, "w") as f:
@@ -91,8 +161,8 @@ def main(argv=None):
     ap.add_argument("--silos", type=int, default=1)
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--rounds-per-dispatch", type=int, default=1,
-                    help="FedDCL rounds fused into one dispatch (federated "
-                         "branch, not ported yet)")
+                    help="FedDCL rounds per call of the multiround step "
+                         "(1 = one call per round)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--non-iid", action="store_true")

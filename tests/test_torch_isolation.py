@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.privacy", "repro_torch.graphs",
             "repro_torch.serve_collab.server",
             "repro_torch.serve_collab.tables",
-            "repro_torch.launch.serve_collab"} <= set(mods)
+            "repro_torch.launch.serve_collab",
+            "repro_torch.checkpoint.store"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -116,9 +117,15 @@ def test_llm_entry_points_default_to_cuda(monkeypatch):
                  lambda: steps.make_prefill_step(cfg, cache_len=8),
                  lambda: steps.make_serve_step(cfg),
                  lambda: steps.make_train_step(tc.model, tc),
+                 lambda: steps.make_federated_local_step(tc.model, tc),
+                 lambda: steps.make_federated_local_phase_step(tc.model, tc),
+                 lambda: steps.make_federated_round_step(tc.model, tc),
+                 lambda: steps.make_federated_multiround_step(tc.model, tc),
+                 lambda: steps.make_fedavg_sync_step(tc),
                  lambda: serve.BatchedServer(cfg, None),
                  lambda: serve.main([]),
                  lambda: train.train("rwkv6-3b", steps=1),
+                 lambda: train.train("rwkv6-3b", steps=1, silos=2),
                  lambda: train.main(["--arch", "rwkv6-3b", "--reduced"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

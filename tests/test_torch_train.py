@@ -383,11 +383,35 @@ def test_train_cli_loss_falls():
     assert losses[-1] < losses[0] - 1.0, losses
 
 
-def test_train_unported_options_raise():
+def test_train_unported_options_raise(monkeypatch):
+    """An arch with a prefix front end still raises, federated or not.
+    And train() runs a kernel only where it has a gradient: the ssm family
+    on the WKV6 kernels, a dense model on plain attention (the flash
+    kernel has no backward), in both branches."""
     from repro_torch.launch import train as ttrain
-    for kw in (dict(silos=2), dict(checkpoint_path="x.npz")):
+    for kw in (dict(), dict(silos=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.train(ARCH, device="cpu", **kw)
+            ttrain.train("musicgen-large", device="cpu", **kw)
+    seen = []
+
+    def spy(name):
+        real = getattr(ttrain.steps_lib, name)
+
+        def wrapped(cfg, tc, **kw):
+            seen.append((cfg.family, name, kw["use_kernels"]))
+            return real(cfg, tc, **kw)
+        monkeypatch.setattr(ttrain.steps_lib, name, wrapped)
+
+    spy("make_train_step")
+    spy("make_federated_round_step")
+    for arch in ("llama3.2-1b", ARCH):
+        for silos in (1, 2):
+            ttrain.train(arch, steps=2, batch=2, seq=16, silos=silos,
+                         local_steps=2, device="cpu")
+    assert {(family, name) for family, name, _ in seen} == {
+        (family, name) for family in ("dense", "ssm")
+        for name in ("make_train_step", "make_federated_round_step")}
+    assert all(use == (family == "ssm") for family, _, use in seen), seen
 
 
 # --------------------------------------------------------------------------
@@ -445,3 +469,17 @@ def test_dense_train_step_raises_with_flash_kernel_on_cuda(cuda_device):
     params, _, m = step(params, opt.init(params), b)
     assert np.isfinite(float(m["loss"]))
     assert not torch.equal(params["embed"], before)
+
+
+@pytest.mark.cuda
+def test_dense_train_cli_runs_on_cuda(cuda_device):
+    """train() on a dense arch trains on the card: plain attention, no
+    flash launch."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train as ttrain
+    before = fa_kernel.launches()
+    _, hist = ttrain.train("llama3.2-1b", steps=4, batch=2, seq=64,
+                           log_every=1, device=cuda_device)
+    assert [r["step"] for r in hist] == [0, 1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in hist)
+    assert fa_kernel.launches() == before
