@@ -20,6 +20,14 @@ these paths through the port's public entry points:
   mixed-tenant stream, cold and warm, and live onboarding of a silo (the
   Gram kernel's onboarding launches) and of a user, every served row held
   to its direct path;
+- the paper's experiments through the port's experiment scripts
+  (``repro_torch.benchmarks``, ``repro_torch.experiments``): Experiment I
+  at its full layout and Experiment II's mnist column at the paper's
+  width, all five methods on the scan engine with FedDCL's step 3 on the
+  device backend (the Gram kernel), each with the reference's claims; the
+  host-vs-device scenario matrix; the communication count; the plan-cache
+  sweeps with their asserts; and the kernel micro-benchmarks, with the
+  batched Gram at least 3x a loop of single calls;
 - the LLM serving path at full width and depth with random weights from a
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
   BatchedServer (decode and server eager and as captured CUDA graphs,
@@ -81,6 +89,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.api import FedDCL  # noqa: E402
+from repro_torch.benchmarks import (comm_cost, exp1_convergence,  # noqa: E402
+                                    exp3_groups, kernels_bench)
+from repro_torch.benchmarks.common import run_all_methods  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import (ARCHS, REDUCED,  # noqa: E402
                                  FederatedConfig, InputShape, TrainConfig)
@@ -92,6 +103,7 @@ from repro_torch.core.federated import (PlanCache,  # noqa: E402
 from repro_torch.data.partition import split_iid  # noqa: E402
 from repro_torch.data.tokens import TokenStream, silo_batches  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
+from repro_torch.experiments import sweep  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -843,6 +855,99 @@ def phase_serve_collab(dev, model, data):
           and passes["onboard_user"]["new_captures"] > 0,
           f"onboard_user: {row['onboard_user']}, "
           f"{passes['onboard_user']}")
+    return row
+
+
+# -- the paper's experiments -------------------------------------------------
+
+# the scenario matrix's grid: the full one (d <= 32, c <= 8) runs in well
+# under 30 s on the card
+SCENARIOS_FAST = False
+GRAM_LOOP_SPEEDUP = 3.0   # gram_batched_d16 over gram_group_loop_d16
+
+
+def phase_paper_experiments(dev):
+    """The paper's experiments through the port's scripts, on the card:
+    Experiment I at its full layout and Experiment II's mnist column at the
+    paper's width (all five methods on the scan engine, FedDCL's step 3 on
+    the device backend: the Gram kernel), the host-vs-device scenario
+    matrix, the communication count, the plan-cache sweeps and the kernel
+    micro-benchmarks, each with the reference's own bar."""
+    t_phase = time.perf_counter()
+    row = {"phase": "paper_experiments"}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Experiment I (Fig. 4): only FedDCL's step 3 runs the Gram kernel
+        gram_kernel.reset_launches()
+        t0 = time.perf_counter()
+        res, claims = exp1_convergence.run(engine="scan",
+                                           svd_backend="device", device=dev,
+                                           out_dir=tmp)
+        row["exp1"] = {"wall_s": time.perf_counter() - t0,
+                       "rmse": res["metrics"], "times_s": res["times"],
+                       "claims": claims,
+                       "gram_launches": gram_kernel.launches}
+        # Experiment II's mnist column at the paper's width
+        gram_kernel.reset_launches()
+        t0 = time.perf_counter()
+        res = run_all_methods("mnist", d=D, c=C, n_ij=N_IJ, rounds=FIT_ROUNDS,
+                              local_epochs=4, epochs=40, engine="scan",
+                              svd_backend="device", cache=True, device=dev)
+        row["exp2_mnist"] = {"wall_s": time.perf_counter() - t0,
+                             "accuracy": res["metrics"],
+                             "times_s": res["times"],
+                             "gram_launches": gram_kernel.launches}
+        # the host-vs-device scenario matrix (steps 1-3)
+        gram_kernel.reset_launches()
+        t0 = time.perf_counter()
+        rows = exp3_groups.scenarios(fast=SCENARIOS_FAST, device=dev,
+                                     out_dir=tmp)
+        row["scenarios"] = {
+            "grid": "fast" if SCENARIOS_FAST else "full",
+            "cells": len(rows), "wall_s": time.perf_counter() - t0,
+            "rel_frobenius_max": max(r["rel_frobenius"] for r in rows),
+            "gram_launches": gram_kernel.launches,
+            "speedup": spread(r["speedup"] for r in rows),
+            "largest": rows[-1]}
+        comm = comm_cost.protocol_comm(device=dev)
+        row["comm"] = {**comm, "user_traffic_reduction":
+                       comm_cost.user_traffic_reduction(comm)}
+        t0 = time.perf_counter()
+        sw = sweep.bench_sweep(fast=True, device=dev)
+        api = sweep.bench_api_cache(fast=True, device=dev)
+        row["sweep"] = {k: sw[k] for k in ("configs", "executables",
+                                           "t_cold_total_s", "t_warm_total_s",
+                                           "speedup")}
+        row["api_cache"] = {k: api[k] for k in ("t_first_s", "t_warm_mean_s",
+                                                "speedup")}
+        row["sweeps_wall_s"] = time.perf_counter() - t0
+    kb = {name: (us, derived)
+          for name, us, derived in kernels_bench.run(fast=True, device=dev)}
+    row["kernels_bench_us"] = {k: v[0] for k, v in kb.items()}
+    row["kernels_bench_derived"] = {k: v[1] for k, v in kb.items()}
+    loop_speedup = (kb["gram_group_loop_d16"][0]
+                    / kb["gram_batched_d16"][0])
+    row["gram_batched_d16_speedup"] = loop_speedup
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    exp1 = row["exp1"]
+    check(all(exp1["claims"].values()), f"Exp I claims: {exp1['claims']}")
+    check(all(np.isfinite(v) for v in exp1["rmse"].values()),
+          f"Exp I RMSEs: {exp1['rmse']}")
+    check(exp1["gram_launches"] > 0, "Exp I: FedDCL launched no Gram kernel")
+    acc = row["exp2_mnist"]["accuracy"]
+    check(all(np.isfinite(v) for v in acc.values()), f"mnist: {acc}")
+    check(acc["FedDCL"] > acc["Local"],
+          f"mnist: FedDCL {acc['FedDCL']} does not beat Local {acc['Local']}")
+    check(row["exp2_mnist"]["gram_launches"] > 0,
+          "mnist: FedDCL launched no Gram kernel")
+    sc = row["scenarios"]
+    check(sc["rel_frobenius_max"] <= DEVICE_HOST_TOL,
+          f"scenarios: rel_frobenius {sc['rel_frobenius_max']}")
+    check(sc["gram_launches"] > 0, "scenarios: no Gram kernel launch")
+    check(comm["feddcl_msgs_per_user"] == 2,
+          f"communications per user: {comm['feddcl_msgs_per_user']}")
+    check(loop_speedup >= GRAM_LOOP_SPEEDUP,
+          f"gram_batched_d16 only {loop_speedup:.2f}x over the loop")
     return row
 
 
@@ -1996,6 +2101,8 @@ def main() -> int:
     phase_device_vs_host(model, data)
     del model, data
     clear_plan_cache()
+    paper_row = phase_paper_experiments(dev)
+    clear_plan_cache()
     flash_rows = phase_flash_check(dev, peak)
     p32, p16, logits, state, nxt, prefill_row = phase_llm_prefill(dev)
     phase_llm_decode(dev, p32, p16, logits, state, nxt)
@@ -2054,6 +2161,12 @@ def main() -> int:
         "onboard_launches": {
             "onboard_silo": serve_row["onboard_silo"]["gram_launches"],
             "onboard_user": serve_row["onboard_user"]["gram_launches"]},
+        # the paper's experiments (phase paper_experiments): FedDCL's step 3
+        # on the device backend, and the scenario matrix's device column
+        "paper_launches": {
+            "exp1_feddcl": paper_row["exp1"]["gram_launches"],
+            "exp2_mnist_feddcl": paper_row["exp2_mnist"]["gram_launches"],
+            "scenarios": paper_row["scenarios"]["gram_launches"]},
         "device_ms": per_fit("device_ms"),
         "library_device_ms": per_fit("library_device_ms")}, {
         "name": "flash_attention_fwd_bf16_wgmma", "route": "cuda",

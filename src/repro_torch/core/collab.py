@@ -273,6 +273,16 @@ def get_backend(name, device: DeviceLike = None):
                      f"choose from {sorted(_BACKENDS)}")
 
 
+# --------------------------------------------------------------------------
+# rank-k SVD with backend dispatch (the single-matrix entry point)
+# --------------------------------------------------------------------------
+
+def topk_svd(A: np.ndarray, k: int, backend="host", device: DeviceLike = None):
+    """Rank-k thin SVD. Returns (U (n,k), s (k,), V (m,k)); `device` places
+    the device backend (None -> CUDA)."""
+    return get_backend(backend, device=device).topk_svd(A, k)
+
+
 def _random_orthogonal(rng, k: int) -> np.ndarray:
     Q, R = np.linalg.qr(rng.standard_normal((k, k)))
     return Q * np.sign(np.diag(R))[None, :]
@@ -313,6 +323,15 @@ def _basis_from_svd(svd, rng, block_cols: Sequence[int]) -> GroupBasis:
     U, s, V = svd
     C1 = _obfuscation(rng, s, V, block_cols, U.shape[1])
     return GroupBasis(B=U @ C1)
+
+
+def intra_group_basis(anchors: List[np.ndarray], m_hat_i: int, seed: int,
+                      backend="host", device: DeviceLike = None) -> GroupBasis:
+    """Eq. (1) on DC server i. anchors: per-user Ã_j^(i) of shape (r, m̃_ij)."""
+    rng = np.random.default_rng(seed)
+    A = np.concatenate(anchors, axis=1)               # (r, Σ m̃)
+    svd = get_backend(backend, device=device).topk_svd(A, m_hat_i)
+    return _basis_from_svd(svd, rng, [a.shape[1] for a in anchors])
 
 
 def intra_group_bases(anchor_groups: Sequence[Sequence[np.ndarray]],
@@ -357,3 +376,9 @@ def apply_G_all(Xs: Sequence[np.ndarray], Gs: Sequence[np.ndarray],
     """Step 12: X̂_j = X̃_j G_j for a flat list of users (ONE padded batched
     matmul on device, the serial float64 loop on host)."""
     return get_backend(backend).apply_G_many(Xs, Gs)
+
+
+def alignment_residual(anchor_j: np.ndarray, G: np.ndarray,
+                       Z: np.ndarray) -> float:
+    """Relative ‖Ã G − Z‖_F / ‖Z‖_F — 0 under Theorem-1 conditions."""
+    return float(np.linalg.norm(anchor_j @ G - Z) / max(np.linalg.norm(Z), 1e-12))

@@ -11,6 +11,7 @@ from typing import Any, Dict, Sequence
 
 import torch
 
+from repro_torch.configs.feddcl_mlp import MLPConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -57,6 +58,16 @@ def mlp_per_example_loss(params: Params, x: torch.Tensor, y: torch.Tensor,
     return logz - gold
 
 
+def mlp_loss(params: Params, x: torch.Tensor, y: torch.Tensor, task: str,
+             l2: float = 0.0) -> torch.Tensor:
+    """The mean of `mlp_per_example_loss`, plus l2 · Σ‖w‖² over the weights."""
+    loss = torch.mean(mlp_per_example_loss(params, x, y, task))
+    if l2:
+        sq = sum(torch.sum(torch.square(lp["w"])) for lp in params["layers"])
+        loss = loss + l2 * sq
+    return loss
+
+
 def mlp_metric(params: Params, x: torch.Tensor, y: torch.Tensor,
                task: str) -> float:
     """RMSE for regression (paper Fig. 4/5), accuracy for classification."""
@@ -64,3 +75,13 @@ def mlp_metric(params: Params, x: torch.Tensor, y: torch.Tensor,
     if task == "regression":
         return float(torch.sqrt(torch.mean(torch.square(pred - y))))
     return float(torch.mean((torch.argmax(pred, -1) == y.long()).float()))
+
+
+def for_config(generator: torch.Generator, cfg: MLPConfig, *, reduced: bool,
+               device: DeviceLike = None,
+               dtype: torch.dtype = torch.float32) -> Params:
+    """`init_mlp_params` at a Table 3 network: input width m̂ when
+    `reduced` (DC / FedDCL), else m."""
+    in_dim = cfg.reduced_dim if reduced else cfg.in_dim
+    return init_mlp_params(generator, in_dim, cfg.hidden, cfg.out_dim,
+                           device=device, dtype=dtype)

@@ -38,7 +38,18 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.serve_collab.server",
             "repro_torch.serve_collab.tables",
             "repro_torch.launch.serve_collab",
-            "repro_torch.checkpoint.store"} <= set(mods)
+            "repro_torch.checkpoint.store",
+            "repro_torch.benchmarks.common",
+            "repro_torch.benchmarks.exp1_convergence",
+            "repro_torch.benchmarks.exp2_datasets",
+            "repro_torch.benchmarks.exp3_groups",
+            "repro_torch.benchmarks.comm_cost",
+            "repro_torch.benchmarks.ablation_noniid",
+            "repro_torch.benchmarks.kernels_bench",
+            "repro_torch.benchmarks.run",
+            "repro_torch.experiments.sweep",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.feddcl_tabular"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -101,6 +112,47 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert collab.DeviceBackend(device="cpu").device.type == "cpu"
     assert FedDCL(m_tilde=2, device="cpu").device.type == "cpu"
+
+
+def test_paper_scripts_default_to_cuda(monkeypatch):
+    """The experiment scripts resolve their device before any work: without
+    a card and without device='cpu' (--device cpu) they raise."""
+    from repro_torch.benchmarks import (comm_cost, common, exp1_convergence,
+                                        exp3_groups, kernels_bench, run)
+    from repro_torch.examples import feddcl_tabular, quickstart
+    from repro_torch.experiments import sweep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: common.run_all_methods("battery_small", d=2, c=2),
+                 lambda: exp1_convergence.main(["--fast"]),
+                 lambda: exp3_groups.scenarios(fast=True),
+                 lambda: comm_cost.protocol_comm(),
+                 lambda: kernels_bench.run(fast=True),
+                 lambda: run.main(["--only", "comm"]),
+                 lambda: sweep.main(["--fast"]),
+                 lambda: quickstart.main([]),
+                 lambda: feddcl_tabular.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_paper_scripts_never_default_to_results():
+    """Every experiment script's default output directory is results_torch/, so the
+    reference's committed results/ artifacts are never overwritten."""
+    import inspect
+    from repro_torch.benchmarks import (ablation_noniid, comm_cost, common,
+                                        exp1_convergence, exp2_datasets,
+                                        exp3_groups)
+    from repro_torch.experiments import sweep
+    assert common.OUT_DIR == sweep.OUT_DIR == "results_torch"
+    fns = [exp1_convergence.run, exp2_datasets.run, exp3_groups.run,
+           exp3_groups.scenarios, comm_cost.run, ablation_noniid.run]
+    for fn in fns:
+        default = inspect.signature(fn).parameters["out_dir"].default
+        assert os.path.normpath(default) != "results", fn
+    for mod in (exp1_convergence, exp2_datasets, exp3_groups, comm_cost,
+                ablation_noniid, sweep):
+        src = Path(mod.__file__).read_text()
+        assert '"results"' not in src and '"results/' not in src, mod
 
 
 def test_llm_entry_points_default_to_cuda(monkeypatch):
