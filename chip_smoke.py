@@ -28,6 +28,14 @@ these paths through the port's public entry points:
   host-vs-device scenario matrix; the communication count; the plan-cache
   sweeps with their asserts; and the kernel micro-benchmarks, with the
   batched Gram at least 3x a loop of single calls;
+- the reference's scripts that carry bars, through the port's
+  (``serve_bench`` at its full layout, ``robust_ablation`` at its full
+  sizes, ``fed_bench --fast``, and the examples ``end_to_end_driver``,
+  ``feddcl_llm_pretrain`` and ``serve_batched``), each with its own bars:
+  a warm serve sweep that builds and captures nothing, every group's
+  captured serve step answering from its arguments, onboarding against a
+  recompute, the robust aggregators' acceptance, host == scan on the card,
+  and the federated LLM losses falling;
 - the LLM serving path at full width and depth with random weights from a
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
   BatchedServer (decode and server eager and as captured CUDA graphs,
@@ -90,7 +98,8 @@ import torch  # noqa: E402
 
 from repro_torch.api import FedDCL  # noqa: E402
 from repro_torch.benchmarks import (comm_cost, exp1_convergence,  # noqa: E402
-                                    exp3_groups, kernels_bench)
+                                    exp3_groups, fed_bench, kernels_bench,
+                                    serve_bench)
 from repro_torch.benchmarks.common import run_all_methods  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import (ARCHS, REDUCED,  # noqa: E402
@@ -103,7 +112,9 @@ from repro_torch.core.federated import (PlanCache,  # noqa: E402
 from repro_torch.data.partition import split_iid  # noqa: E402
 from repro_torch.data.tokens import TokenStream, silo_batches  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
-from repro_torch.experiments import sweep  # noqa: E402
+from repro_torch.examples import (end_to_end_driver,  # noqa: E402
+                                  feddcl_llm_pretrain, serve_batched)
+from repro_torch.experiments import robust_ablation, sweep  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -948,6 +959,101 @@ def phase_paper_experiments(dev):
           f"communications per user: {comm['feddcl_msgs_per_user']}")
     check(loop_speedup >= GRAM_LOOP_SPEEDUP,
           f"gram_batched_d16 only {loop_speedup:.2f}x over the loop")
+    return row
+
+
+# -- the scripts that carry the reference's bars ----------------------------
+
+E2E_STEPS, E2E_BATCH, E2E_SEQ = 200, 8, 256   # end_to_end_driver's defaults
+E2E_ARGS = ["--steps", str(E2E_STEPS), "--batch", str(E2E_BATCH),
+            "--seq", str(E2E_SEQ)]
+FED_BENCH_TOL = 1e-4      # host vs scan rel_param_diff (the reference's bar)
+
+
+def kernel_launch_counts():
+    return {"gram": gram_kernel.launches, "flash": fa_kernel.launches(),
+            "wkv6": wkv_kernel.launches, "wkv6_bwd": wkv_kernel.grad_launches}
+
+
+def phase_bar_drivers(dev):
+    """The reference's scripts that carry bars, through the port's, on the
+    card, each holding its own bars (an assert in a script fails the run):
+    serve_bench at its full layout (the warm sweep builds no plan and
+    captures no graph, every group's captured step answers from its
+    arguments, onboarding agrees with a recompute to 1e-5 and is >= 5x
+    faster), robust_ablation at its full sizes (the acceptance asserts;
+    host == scan <= 1e-4 for the robust aggregators), fed_bench --fast
+    (host vs scan <= 1e-4), and the three examples: the llama-100m
+    federated example (200 steps, loss finite and falling), the federated
+    pretraining example (80 steps) and the batched server. None of them
+    may launch a kernel."""
+    t_phase = time.perf_counter()
+    row = {"phase": "bar_drivers"}
+    launches0 = kernel_launch_counts()
+    dev_arg = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ["--out-dir", tmp]
+        t0 = time.perf_counter()
+        sb = serve_bench.run(fast=False, device=dev)
+        s = sb["serve"]
+        row["serve_bench"] = {
+            "wall_s": time.perf_counter() - t0, "layout": sb["layout"],
+            **{k: s[k] for k in ("rows_per_s_warm", "p50_latency_ms",
+                                 "p99_latency_ms", "t_cold_s", "t_warm_s",
+                                 "plans_cold", "captures_cold",
+                                 "compiles_warm", "cache")},
+            "t_setup_s": sb["t_setup_s"], "onboard": sb["onboard"]}
+        t0 = time.perf_counter()
+        ra = robust_ablation.main(["--skip-sharded", *dev_arg, *out])
+        row["robust_ablation"] = {
+            "wall_s": time.perf_counter() - t0, "sizes": ra["sizes"],
+            "rounds": ra["rounds"], "acceptance": ra["acceptance"],
+            "engine_agreement_maxdiff": ra["engine_agreement_maxdiff"],
+            "cell_s": spread(r["time_s"]
+                             for r in ra["grid"] + ra["dropout_grid"])}
+        t0 = time.perf_counter()
+        fb = fed_bench.main(["--fast", *dev_arg, *out])["cases"]
+        row["fed_bench"] = {"wall_s": time.perf_counter() - t0, "cases": fb}
+        t0 = time.perf_counter()
+        hist = end_to_end_driver.main(E2E_ARGS + dev_arg + out)
+        t_train = hist[-1]["elapsed_s"]
+        row["end_to_end_driver"] = {
+            "wall_s": time.perf_counter() - t0, "steps": E2E_STEPS,
+            "first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"],
+            "steps_per_s": E2E_STEPS / t_train,
+            "tokens_per_s": E2E_STEPS * E2E_BATCH * E2E_SEQ / t_train}
+        t0 = time.perf_counter()
+        hist_p = feddcl_llm_pretrain.main(dev_arg + out)
+        row["feddcl_llm_pretrain"] = {
+            "wall_s": time.perf_counter() - t0,
+            "first_loss": hist_p[0]["loss"], "last_loss": hist_p[-1]["loss"]}
+        t0 = time.perf_counter()
+        served = serve_batched.main(dev_arg)
+        row["serve_batched"] = {
+            "wall_s": time.perf_counter() - t0, "requests": len(served),
+            "tokens": sum(len(v) for v in served.values()),
+            "status": sorted(set(served.status.values()))}
+    launches1 = kernel_launch_counts()
+    row["kernel_launches"] = {k: launches1[k] - launches0[k]
+                              for k in launches0}
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    check(s["compiles_warm"] == 0, f"serve_bench warm sweep built {s}")
+    check(s["captures_cold"] == s["plans_cold"] > 0,
+          f"serve_bench: {s['plans_cold']} plans, {s['captures_cold']} "
+          "captures cold")
+    check(all(d <= 1e-4 for d in ra["engine_agreement_maxdiff"].values()),
+          f"robust_ablation host vs scan {ra['engine_agreement_maxdiff']}")
+    check(all(c["rel_param_diff"] <= FED_BENCH_TOL for c in fb),
+          f"fed_bench rel_param_diff {[c['rel_param_diff'] for c in fb]}")
+    check(len(hist) > 1 and all(np.isfinite(h["loss"]) for h in hist),
+          f"end_to_end_driver losses {hist}")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"end_to_end_driver loss {hist[0]['loss']} -> {hist[-1]['loss']}")
+    check(row["serve_batched"]["status"] == ["done"],
+          f"serve_batched statuses {row['serve_batched']['status']}")
+    check(all(v == 0 for v in row["kernel_launches"].values()),
+          f"the drivers launched kernels: {row['kernel_launches']}")
     return row
 
 
@@ -2102,6 +2208,8 @@ def main() -> int:
     del model, data
     clear_plan_cache()
     paper_row = phase_paper_experiments(dev)
+    clear_plan_cache()
+    phase_bar_drivers(dev)
     clear_plan_cache()
     flash_rows = phase_flash_check(dev, peak)
     p32, p16, logits, state, nxt, prefill_row = phase_llm_prefill(dev)

@@ -478,6 +478,22 @@ def _tree_signature(tree: Any) -> Tuple:
             tuple((tuple(l.shape), str(l.dtype)) for l in tree_leaves(tree)))
 
 
+_plans_built = 0
+
+
+def plans_built() -> int:
+    """Plans (``FLPlan``, ``ServePlan``) built since the process started,
+    in a cache or outside one: ``analysis.hlo_audit.CompileCounter`` reads
+    it."""
+    return _plans_built
+
+
+def _note_plan_built() -> None:
+    """Called once by every plan's constructor."""
+    global _plans_built
+    _plans_built += 1
+
+
 class PlanCache:
     """LRU cache of FL plans keyed on the full signature.
 
@@ -1025,11 +1041,16 @@ class FLPlan:
             aggregator=aggregator, per_example=per_example,
             reset_opt=reset_opt, masked=masked, trim_frac=trim_frac,
             krum_f=krum_f)
-        self.captures = 0
         self.replays = 0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._bufs: Optional[SimpleNamespace] = None
         self._live = False
+        _note_plan_built()
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this plan captured: 1 once its round is captured."""
+        return int(self._graph is not None)
 
     # -- carry -----------------------------------------------------------
 
@@ -1167,7 +1188,6 @@ class FLPlan:
         self._graph, b.loss = capture(
             round_into_buffers, self.device,
             warmup=lambda: self.round_step(*args()), timings=timings)
-        self.captures += 1
 
 
 # the reference's name for building a plan

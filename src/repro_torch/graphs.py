@@ -8,6 +8,9 @@ captured on that stream. A replay runs the captured kernels against the
 addresses baked in at capture, so every caller keeps its inputs in static
 buffers (or keys its graphs on the inputs' addresses). A failed capture
 raises: no caller falls back to an eager step.
+
+``graphs_captured()`` is the number of graphs captured here for the life
+of the process: ``analysis.hlo_audit.CompileCounter`` reads it.
 """
 from __future__ import annotations
 
@@ -17,6 +20,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 _CAPTURE_STREAMS: Dict[str, "torch.cuda.Stream"] = {}
+_captured = 0
+
+
+def graphs_captured() -> int:
+    """Graphs captured by `capture` since the process started."""
+    return _captured
 
 
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -38,6 +47,7 @@ def capture(fn: Callable[[], Any], device: torch.device, *,
     `fn` into a new CUDA graph there. Returns (graph, what `fn` returned
     while captured: tensors in the graph's pool, rewritten by each replay).
     Nothing is replayed. `timings` gets ``warmup_s`` and ``capture_s``."""
+    global _captured
     t0 = time.perf_counter()
     side = capture_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -49,6 +59,7 @@ def capture(fn: Callable[[], Any], device: torch.device, *,
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         out = fn()
+    _captured += 1
     if timings is not None:
         timings["warmup_s"] = t1 - t0
         timings["capture_s"] = time.perf_counter() - t1

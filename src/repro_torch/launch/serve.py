@@ -208,6 +208,7 @@ def main(argv=None):
     for rid, toks in sorted(outs.items()):
         print(f"  req {rid}: {len(toks)} tokens -> {toks[:8]}... "
               f"[{outs.status[rid]}]")
+    return outs
 
 
 if __name__ == "__main__":

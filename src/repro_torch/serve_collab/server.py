@@ -39,8 +39,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.federated import (PlanCache, _tree_signature,
-                                        bucket_pow2, default_plan_cache)
+from repro_torch.core.federated import (PlanCache, _note_plan_built,
+                                        _tree_signature, bucket_pow2,
+                                        default_plan_cache)
 from repro_torch.core.protocol import FedDCLSetup
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import capture
@@ -111,10 +112,16 @@ class ServePlan:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.captures = self.replays = 0
+        self.replays = 0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._bufs: Optional[Dict[str, Any]] = None
         self._out: Optional[torch.Tensor] = None
+        _note_plan_built()
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this plan captured: 1 once its step is captured."""
+        return int(self._graph is not None)
 
     @torch.no_grad()
     def __call__(self, params, M: torch.Tensor, mu: torch.Tensor,
@@ -131,10 +138,31 @@ class ServePlan:
         if self._graph is None:
             self._graph, self._out = capture(
                 lambda: serve_step(**self._bufs), self.device)
-            self.captures += 1
         self._graph.replay()
         self.replays += 1
         return self._out.cpu().numpy()
+
+
+class LoweredStep:
+    """One shape bucket's step as the plan cache holds it, bound to one
+    group's arguments (``ServeCollab.lower_step``). ``args`` = (params, M,
+    mu, x, tix), x and tix on the host as requests arrive; ``run`` serves
+    them through the plan (on CUDA, a replay of its graph) and ``eager``
+    computes ``serve_step`` on them directly."""
+
+    def __init__(self, plan: ServePlan, dispatch, args: tuple):
+        self.plan = plan
+        self._dispatch = dispatch
+        self.args = args
+
+    def run(self, params, M, mu, x, tix) -> np.ndarray:
+        return self._dispatch(self.plan, params, M, mu, x.numpy(),
+                              tix.numpy())
+
+    @torch.no_grad()
+    def eager(self, params, M, mu, x, tix) -> np.ndarray:
+        return serve_step(params, M, mu, x.to(M.device),
+                          tix.to(M.device)).cpu().numpy()
 
 
 class ServeCollab:
@@ -213,14 +241,31 @@ class ServeCollab:
         plan, _ = self.cache.lookup(key, lambda: ServePlan(self.device))
         return plan
 
-    def lower_step(self, group: int, b_pad: int):
-        """The reference lowers the step here for ``analysis.hlo_audit``;
-        the port has no such audit yet."""
-        raise NotImplementedError(
-            "ServeCollab.lower_step feeds analysis.hlo_audit, which is not "
-            "ported yet (ROADMAP.md, Queue 1 item 7); the port's check that "
-            "no tenant data is baked into a captured step is its cuda test "
-            "of a table overwritten between replays")
+    def lower_step(self, group: int, b_pad: int) -> "LoweredStep":
+        """The step of `group`'s shape bucket at `b_pad` rows, built (on
+        CUDA, captured) through the plan cache and run once on the group's
+        table, with rows from a fixed seed whose users cycle through the
+        group (every user among them when ``b_pad`` >= the group's count):
+        what ``analysis.hlo_audit.assert_no_baked_data`` takes."""
+        tbl = self.tables[group]
+        plan = self._step_fn(tbl.t_pad, b_pad, tbl.in_dim, tbl.out_dim)
+        x = np.random.default_rng(0).standard_normal((b_pad, tbl.in_dim))
+        step = LoweredStep(
+            plan, self._dispatch,
+            (self.params, tbl.M, tbl.mu, torch.from_numpy(x.astype(np.float32)),
+             torch.arange(b_pad) % tbl.count))
+        step.run(*step.args)
+        return step
+
+    def _dispatch(self, plan: ServePlan, params, M, mu, x: np.ndarray,
+                  tix: np.ndarray) -> np.ndarray:
+        """One call of `plan`, its captures and replays added to the
+        cache's counts."""
+        captures, replays = plan.captures, plan.replays
+        y = plan(params, M, mu, x, tix)
+        self.cache.captures += plan.captures - captures
+        self.cache.replays += plan.replays - replays
+        return y
 
     # -- serving loop ------------------------------------------------------
 
@@ -254,10 +299,7 @@ class ServeCollab:
             tix[at:at + take] = req.user
             at += take
         plan = self._step_fn(tbl.t_pad, b_pad, tbl.in_dim, tbl.out_dim)
-        captures, replays = plan.captures, plan.replays
-        y = plan(self.params, tbl.M, tbl.mu, x, tix)
-        self.cache.captures += plan.captures - captures
-        self.cache.replays += plan.replays - replays
+        y = self._dispatch(plan, self.params, tbl.M, tbl.mu, x, tix)
         at = 0
         now = time.perf_counter()
         for req, lo, take in batch:

@@ -49,7 +49,14 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.benchmarks.run",
             "repro_torch.experiments.sweep",
             "repro_torch.examples.quickstart",
-            "repro_torch.examples.feddcl_tabular"} <= set(mods)
+            "repro_torch.examples.feddcl_tabular",
+            "repro_torch.analysis", "repro_torch.analysis.hlo_audit",
+            "repro_torch.benchmarks.serve_bench",
+            "repro_torch.benchmarks.fed_bench",
+            "repro_torch.experiments.robust_ablation",
+            "repro_torch.examples.end_to_end_driver",
+            "repro_torch.examples.feddcl_llm_pretrain",
+            "repro_torch.examples.serve_batched"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -119,10 +126,17 @@ def test_paper_scripts_default_to_cuda(monkeypatch):
     a card and without device='cpu' (--device cpu) they raise."""
     from repro_torch.benchmarks import (comm_cost, common, exp1_convergence,
                                         exp3_groups, kernels_bench, run)
-    from repro_torch.examples import feddcl_tabular, quickstart
-    from repro_torch.experiments import sweep
+    from repro_torch.benchmarks import fed_bench, serve_bench
+    from repro_torch.examples import (end_to_end_driver, feddcl_llm_pretrain,
+                                      feddcl_tabular, quickstart)
+    from repro_torch.experiments import robust_ablation, sweep
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: common.run_all_methods("battery_small", d=2, c=2),
+    for call in (lambda: serve_bench.main(["--fast"]),
+                 lambda: fed_bench.main(["--fast"]),
+                 lambda: robust_ablation.main(["--fast", "--skip-sharded"]),
+                 lambda: end_to_end_driver.main(["--steps", "1"]),
+                 lambda: feddcl_llm_pretrain.main(["--steps", "1"]),
+                 lambda: common.run_all_methods("battery_small", d=2, c=2),
                  lambda: exp1_convergence.main(["--fast"]),
                  lambda: exp3_groups.scenarios(fast=True),
                  lambda: comm_cost.protocol_comm(),
@@ -142,7 +156,9 @@ def test_paper_scripts_never_default_to_results():
     from repro_torch.benchmarks import (ablation_noniid, comm_cost, common,
                                         exp1_convergence, exp2_datasets,
                                         exp3_groups)
-    from repro_torch.experiments import sweep
+    from repro_torch.benchmarks import fed_bench, serve_bench
+    from repro_torch.examples import end_to_end_driver, feddcl_llm_pretrain
+    from repro_torch.experiments import robust_ablation, sweep
     assert common.OUT_DIR == sweep.OUT_DIR == "results_torch"
     fns = [exp1_convergence.run, exp2_datasets.run, exp3_groups.run,
            exp3_groups.scenarios, comm_cost.run, ablation_noniid.run]
@@ -150,7 +166,8 @@ def test_paper_scripts_never_default_to_results():
         default = inspect.signature(fn).parameters["out_dir"].default
         assert os.path.normpath(default) != "results", fn
     for mod in (exp1_convergence, exp2_datasets, exp3_groups, comm_cost,
-                ablation_noniid, sweep):
+                ablation_noniid, sweep, serve_bench, fed_bench,
+                robust_ablation, end_to_end_driver, feddcl_llm_pretrain):
         src = Path(mod.__file__).read_text()
         assert '"results"' not in src and '"results/' not in src, mod
 

@@ -370,7 +370,11 @@ def test_three_train_steps_match_reference(model, remat):
 
 
 def test_train_cli_loss_falls():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one thread, which torch takes from OMP_NUM_THREADS at start-up: beside
+    # the suite's other parallel workers, a subprocess with a thread per core
+    # stalls on its barriers and has taken minutes where it needs seconds
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
          "--reduced", "--device", "cpu", "--steps", "20"],
