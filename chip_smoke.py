@@ -59,7 +59,17 @@ these paths through the port's public entry points:
   make_federated_multiround_step call, the silos compared before and
   after each sync and the fedavg / median / Krum syncs timed alone; and
   the reduced train() CLI on the card, dense (plain attention) and
-  federated with a checkpoint read back.
+  federated with a checkpoint read back;
+- the moe family at full width and depth with random weights from a seed:
+  granite-moe-1b-a400m (24 layers, 32 experts top-8, the gspmd capacity
+  dispatch) prefilled in bf16 and fp32 (B=4 x 2048, the flash kernels'
+  path, 24 launches of each route, held against the plain path, every
+  routing decision that differs between two paths counted with its top-k
+  margin), 32 bf16 decode steps eager and captured (the same tokens,
+  bitwise the same logits), BatchedServer eager and captured, 5 train
+  steps under TrainConfig's defaults on plain attention, and FedDCL's
+  federated round (2 silos x 2 local steps, fedavg, 3 rounds, the silos
+  equal after each sync).
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step, the federated rounds) give min / median / max
@@ -71,6 +81,7 @@ fails and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -125,6 +136,7 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
                                       make_fedavg_sync_step,
+                                      make_federated_local_phase_step,
                                       make_federated_local_step,
                                       make_federated_multiround_step,
                                       make_federated_round_step,
@@ -132,6 +144,7 @@ from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
                                       make_train_step, silo_opt_init)
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -160,6 +173,7 @@ LLAMA = ARCHS["llama3.2-1b"]
 GEMMA = ARCHS["gemma2-2b"]
 FLASH_SHAPES = [
     ("llama3.2-1b prefill", 4, 32, 8, 2048, 2048, 64, 0, 0.0, 0),
+    ("granite-moe-1b prefill", 4, 16, 8, 2048, 2048, 64, 0, 0.0, 0),
     ("gemma2-2b local layer", 1, 8, 4, 8192, 8192, 256, 4096, 50.0, 0),
     ("gemma2-2b global layer", 1, 8, 4, 8192, 8192, 256, 0, 50.0, 0),
     ("q tail at q_offset", 4, 32, 8, 256, 2048, 64, 0, 0.0, 1792),
@@ -206,6 +220,19 @@ FED_ROUND_STEPS, FED_R = 2, 2   # rounds through round_step, then multi_step's R
 FED_SAMPLE = 1 << 20     # elements of each sampled leaf held to the float64 mean
 FED_MEAN_TOL = 1e-6      # fedavg vs the float64 mean of the silos, relative
 FED_SYNCS = ("fedavg", "median", "krum")
+# granite-moe-1b-a400m (the moe family) at full width and depth: bf16 and
+# fp32 prefills of GRANITE_B x GRANITE_S (the second FLASH_SHAPES row), a
+# bf16 decode from the first, BatchedServer, TrainConfig's train steps and
+# a federated round on GRANITE_B x GRANITE_S tokens (split over the silos)
+GRANITE = ARCHS["granite-moe-1b-a400m"]
+GRANITE_B, GRANITE_S, GRANITE_CACHE = 4, 2048, 4096
+GRANITE_FED_ROUNDS = 3
+# a routing flip (a token's chosen experts differ between two paths) in
+# the first layer that has one, where the two paths' inputs differ by
+# rounding only, is explained when the plain path's top-k margin there is
+# below this (fp32 paths; relative gaps of ~1e-6 move the probabilities
+# by far less)
+FLIP_MARGIN = 1e-5
 # steps of the new decode rows' profiled runs and captured-vs-eager gap: the
 # profiler's post-processing grows with the kernels it saw (rwkv6-3b runs
 # ~2,800 a step)
@@ -2184,6 +2211,428 @@ def phase_rwkv6_federated(dev, sp, train_row):
     return row
 
 
+# -- phase 13: granite-moe-1b-a400m, the moe family ---------------------------
+
+@contextlib.contextmanager
+def router_trace():
+    """Record every router call's chosen experts and selection scores, in
+    call order (one call a moe layer), while the block runs."""
+    calls = []
+    real = model_layers._router_probs
+
+    def traced(p, x2d, mo):
+        gates, idx, probs = real(p, x2d, mo)
+        sel = probs + p["router_bias"].float() if "router_bias" in p else probs
+        calls.append((idx, sel))
+        return gates, idx, probs
+
+    model_layers._router_probs = traced
+    try:
+        yield calls
+    finally:
+        model_layers._router_probs = real
+
+
+def routing_flips(got, ref, cfg, margin_bar=None):
+    """Tokens whose chosen experts differ between two traced runs (`got`
+    against `ref`, layer by layer), with the (token, slot) pairs whose
+    kept-or-dropped fate differs. A flip in the first layer that has any
+    is primary (the paths' inputs there differ by rounding only) and gets
+    its top-k margin in `ref`'s scores; a later flip may follow from an
+    earlier one (a flipped token's output moves by O(1), and so do the
+    keys and values other tokens read). With `margin_bar`, primary flips
+    at or above it are counted as unexplained."""
+    mo = cfg.moe
+    per_layer, drops, primary, first = [], [], [], None
+    for layer, ((ig, _), (ir, sr)) in enumerate(zip(got, ref)):
+        flipped = (ig.sort(-1).values != ir.sort(-1).values).any(-1)
+        per_layer.append(int(flipped.sum()))
+        T = ir.shape[0]
+        cap = max(int(mo.capacity_factor * T * mo.top_k / mo.num_experts), 1)
+        keep_g = model_layers.moe_dispatch(ig, cap, mo.num_experts)[2]
+        keep_r = model_layers.moe_dispatch(ir, cap, mo.num_experts)[2]
+        drops.append(int((keep_g != keep_r).sum()))
+        if first is None and per_layer[-1]:
+            first = layer
+            top = sr.topk(mo.top_k + 1, dim=-1).values
+            margins = (top[:, mo.top_k - 1] - top[:, mo.top_k])[flipped]
+            tokens = flipped.nonzero()[:, 0]
+            primary = [{"token": int(t), "margin": float(m)}
+                       for t, m in zip(tokens.tolist(), margins.tolist())]
+    out = {"decisions": sum(i.shape[0] for i, _ in ref),
+           "flipped": sum(per_layer), "flipped_per_layer": per_layer,
+           "kept_pairs_changed_per_layer": drops,
+           "first_flip_layer": first, "primary_flips": primary[:16],
+           "primary_count": len(primary),
+           "primary_max_margin": max((f["margin"] for f in primary),
+                                     default=None)}
+    if margin_bar is not None:
+        out["margin_bar"] = margin_bar
+        out["unexplained"] = sum(f["margin"] >= margin_bar for f in primary)
+    return out
+
+
+def rel_dev(a, b) -> float:
+    """rel() on the card, for tensors too large to bring over."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+
+
+def cache_rel(state, ref_state) -> float:
+    """rel over every layer's cached keys and values together."""
+    num = den = 0.0
+    for part in ref_state:
+        for name in ("k", "v"):
+            a = state[part][name].double()
+            b = ref_state[part][name].double()
+            num += float(torch.sum(torch.square(a - b)))
+            den += float(torch.sum(torch.square(b)))
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def granite_prefills(cfg, p32, p16, dev):
+    """fp32 and bf16 prefills of the same GRANITE_B x GRANITE_S prompt,
+    each on the kernel path (counted by route) and on the plain path, the
+    routing of each traced. Returns (row, the bf16 kernel path's logits and
+    state for decode)."""
+    tokens = {"tokens": random_tokens(13, (GRANITE_B, GRANITE_S),
+                                      cfg.vocab_size, dev)}
+    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+    steps = {(dt, k): make_prefill_step(cfg, cache_len=GRANITE_CACHE,
+                                        use_kernels=k, device=dev,
+                                        **(f32 if dt == "fp32" else {}))
+             for dt in ("fp32", "bf16") for k in (True, False)}
+    params = {"fp32": p32, "bf16": p16}
+    out, traces, launches, secs = {}, {}, {}, {}
+    for dt in ("fp32", "bf16"):
+        for k in (True, False):
+            fa_kernel.reset_launches()
+            with router_trace() as calls:
+                out[dt, k] = steps[dt, k](params[dt], tokens)
+                torch.cuda.synchronize()
+            traces[dt, k] = calls
+            launches[dt, k] = dict(fa_kernel.route_launches)
+            secs[dt, k] = wall_s(lambda: steps[dt, k](params[dt], tokens),
+                                 reps=3 if (dt, k) == ("bf16", True) else 1)
+    _, per_kernel, kernels, _ = profile_device(
+        lambda: steps["bf16", True](p16, tokens))
+    dev_s = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    logits = {key: o[0] for key, o in out.items()}
+    ref_logits, ref_state = logits["fp32", False], out["fp32", False][1]
+    lrel = {key: rel_dev(logits[key], ref_logits) for key in logits}
+    crel = {key: cache_rel(out[key][1], ref_state) for key in out}
+    row = {"batch": GRANITE_B, "seq": GRANITE_S, "cache_len": GRANITE_CACHE,
+           "bf16": {
+               "flash_launches": launches["bf16", True],
+               "plain_path_launches": launches["bf16", False],
+               "prefill_s": secs["bf16", True],
+               "prefill_tokens_per_s": GRANITE_B * GRANITE_S
+                                       / secs["bf16", True],
+               "plain_path_s": secs["bf16", False],
+               "profiled_device_s": dev_s, "kernels": kernels,
+               "flash_share_of_device_time": sum(
+                   t for n, t in per_kernel.items()
+                   if "flash_fwd_kernel_wgmma" in n) / dev_s,
+               "top_kernels_s": top,
+               "vs_fp32_plain": {
+                   "kernel_path_logits_rel": lrel["bf16", True],
+                   "plain_path_logits_rel": lrel["bf16", False],
+                   "kernel_path_cache_rel": crel["bf16", True],
+                   "plain_path_cache_rel": crel["bf16", False]},
+               "logits_finite": bool(torch.isfinite(
+                   logits["bf16", True]).all()),
+               "flips_kernel_vs_plain": routing_flips(
+                   traces["bf16", True], traces["bf16", False], cfg),
+               "flips_plain_vs_fp32_plain": routing_flips(
+                   traces["bf16", False], traces["fp32", False], cfg)},
+           "fp32": {
+               "flash_launches": launches["fp32", True],
+               "kernel_path_s": secs["fp32", True],
+               "plain_path_s": secs["fp32", False],
+               "kernel_vs_plain_logits_rel": lrel["fp32", True],
+               "kernel_vs_plain_cache_rel": crel["fp32", True],
+               "flips_kernel_vs_plain": routing_flips(
+                   traces["fp32", True], traces["fp32", False], cfg,
+                   FLIP_MARGIN)}}
+    keep = out["bf16", True]
+    del out, traces
+    return row, keep
+
+
+def greedy_run(step, params, state, tok, pos, n):
+    """n greedy decode steps: (tokens (n, B), the logits of each step)."""
+    toks, logits = [], []
+    for _ in range(n):
+        out, _ = step(params, state, tok, pos)
+        logits.append(out.clone())
+        tok = out[:, 0].argmax(-1, keepdim=True)
+        toks.append(tok[:, 0])
+        pos = pos + 1
+    return torch.stack(toks), logits
+
+
+def phase_granite_moe(dev):
+    """granite-moe-1b-a400m at full width and depth (24 layers, d 1024,
+    16/8 heads of 64, 32 experts top-8 of width 512, the gspmd dispatch),
+    random weights from a seed: the prefills of granite_prefills; 32 bf16
+    decode steps at B = 4 from the bf16 prefill, eager and captured (the
+    same tokens and bitwise the same logits, from two copies of the
+    state), then timed as llama's; BatchedServer in fp32 eager and
+    captured; TrainConfig's train steps on plain attention; FedDCL's
+    federated round, GRANITE_FED_ROUNDS fedavg rounds of 2 silos x 2
+    local steps. Returns the row."""
+    cfg = GRANITE
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    # bf16 weights; the router stays fp32, as a bf16 init keeps it
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+    p16["layers"]["moe"]["router"] = p32["layers"]["moe"]["router"]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, (logits, state, nxt) = granite_prefills(cfg, p32, p16, dev)
+
+    # decode: eager against captured from two copies of the bf16 state
+    tok = logits[:, 0].argmax(-1, keepdim=True)
+    s_e, s_c = (tree_map(torch.clone, state) for _ in range(2))
+    te, le = greedy_run(make_serve_step(cfg, device=dev), p16, s_e, tok,
+                        nxt.clone(), DECODE_STEPS)
+    cap_step = make_captured_serve_step(cfg, device=dev)
+    tc_, lc = greedy_run(cap_step, p16, s_c, tok, nxt.clone(), DECODE_STEPS)
+    same_tokens = bool(torch.equal(te, tc_))
+    bitwise = all(torch.equal(a, b) for a, b in zip(le, lc))
+    finite = all(bool(torch.isfinite(a).all()) for a in le)
+    del s_e, s_c, le, lc
+    serve_step = make_serve_step(cfg, device=dev)
+    pos = nxt + DECODE_STEPS
+    tok = te[-1][:, None]
+
+    def decode_run():
+        nonlocal tok, pos
+        for _ in range(DECODE_STEPS):
+            out, _ = serve_step(p16, state, tok, pos)
+            tok = out[:, 0].argmax(-1, keepdim=True)
+            pos = pos + 1
+        return out
+
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode_run()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t1)
+    prof_wall, per_kernel, kernels, _ = profile_device(decode_run)
+    busy = sum(per_kernel.values())
+    graph = captured_decode(cfg, p16, state, tok, pos, dev)
+    del state, logits
+    torch.cuda.empty_cache()
+
+    def requests():
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   size=rng.integers(4, 12)),
+                        max_new=16) for i in range(8)]
+
+    server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev,
+                           capture=False)
+    t1 = time.perf_counter()
+    outs = server.serve(requests())
+    torch.cuda.synchronize()
+    eager_serve_s = time.perf_counter() - t1
+    total = sum(len(v) for v in outs.values())
+    captured_server = captured_server_runs(cfg, p32, requests, outs, dev,
+                                           cache_len=256)
+    del server, p16
+    torch.cuda.empty_cache()
+    decode = {"batch": GRANITE_B, "steps": DECODE_STEPS,
+              "start_pos": GRANITE_S,
+              "captured_tokens_equal_eager": same_tokens,
+              "captured_logits_bitwise_eager": bitwise,
+              "logits_finite": finite,
+              "eager_decode_tokens_per_s_spread": spread(
+                  GRANITE_B * DECODE_STEPS / t for t in runs),
+              "eager_ms_per_step": statistics.median(runs)
+                                   / DECODE_STEPS * 1e3,
+              "eager_profiled_device_busy_share": busy / prof_wall,
+              "eager_device_ms_per_step": busy / DECODE_STEPS * 1e3,
+              "kernels_per_step": kernels / DECODE_STEPS,
+              "graph": graph,
+              "server_fp32": {"requests": 8, "slots": 4, "cache_len": 256,
+                              "max_new": 16, "new_tokens": total,
+                              "status": sorted(set(outs.status.values())),
+                              "eager_serve_s": eager_serve_s,
+                              "eager_server_tokens_per_s":
+                                  total / eager_serve_s,
+                              "captured": captured_server}}
+
+    train = granite_train(cfg, p32, dev)
+    fed = granite_federated(cfg, p32, dev)
+    row = {"phase": "granite_moe", "arch": cfg.name,
+           "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
+           "moe": {"experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                   "d_ff_expert": cfg.moe.d_ff_expert,
+                   "impl": cfg.moe.impl,
+                   "capacity_factor": cfg.moe.capacity_factor},
+           "init_s": init_s, "prefill": prefill, "decode": decode,
+           "train": train, "federated": fed}
+    emit(row)
+    bf, fp = prefill["bf16"], prefill["fp32"]
+    n = cfg.num_layers
+    check(bf["flash_launches"][fa_kernel.BF16_ROUTE] == n
+          and sum(bf["flash_launches"].values()) == n,
+          f"granite bf16 prefill launches by route: {bf['flash_launches']}")
+    check(fp["flash_launches"][fa_kernel.F32_ROUTE] == n
+          and sum(fp["flash_launches"].values()) == n,
+          f"granite fp32 prefill launches by route: {fp['flash_launches']}")
+    check(sum(bf["plain_path_launches"].values()) == 0,
+          "granite plain-path prefill launched a flash kernel")
+    check(bf["logits_finite"], "granite bf16 prefill logits")
+    vs = bf["vs_fp32_plain"]
+    check(vs["kernel_path_cache_rel"]
+          <= BF16_GAP * vs["plain_path_cache_rel"],
+          f"granite bf16 kernel path vs fp32 plain (the whole KV cache): "
+          f"{vs['kernel_path_cache_rel']} > {BF16_GAP} x the bf16 plain "
+          f"path's {vs['plain_path_cache_rel']}")
+    flips = fp["flips_kernel_vs_plain"]
+    check(flips["unexplained"] == 0,
+          f"granite fp32 routing flips with a margin >= {FLIP_MARGIN}: "
+          f"{flips}")
+    check(fp["kernel_vs_plain_logits_rel"] <= LM_TOL or flips["flipped"],
+          f"granite fp32 kernel vs plain logits "
+          f"{fp['kernel_vs_plain_logits_rel']} with no routing flip")
+    check(same_tokens and bitwise and finite,
+          f"granite captured vs eager decode: tokens {same_tokens}, "
+          f"logits bitwise {bitwise}, finite {finite}")
+    check(set(outs.status.values()) == {"done"}
+          and all(len(v) == 16 for v in outs.values()),
+          f"granite server statuses {outs.status}")
+    check_graph_rows(cfg.name, graph, captured_server)
+    return row
+
+
+def granite_train(cfg, p32, dev):
+    """TRAIN_STEPS of make_train_step at TrainConfig's defaults (fp32
+    params, bf16 compute, fp32 AdamW, remat) on GRANITE_B x GRANITE_S
+    tokens, on plain attention, as train() runs moe, from a copy of
+    `p32`."""
+    tc = TrainConfig(model=cfg, shape=InputShape("chip", GRANITE_S,
+                                                 GRANITE_B, "train"),
+                     warmup_steps=2, total_steps=TRAIN_STEPS)
+    params = tree_map(torch.clone, p32)
+    step, opt = make_train_step(cfg, tc, use_kernels=False, device=dev)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    stream = TokenStream(cfg.vocab_size, GRANITE_S, GRANITE_B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.reset_launches()
+    metrics, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, stream.batch(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall, per_kernel, kernels, _ = profile_device(
+        lambda: step(params, opt_state, stream.batch(TRAIN_STEPS)))
+    dev_s = sum(per_kernel.values())
+    steady = statistics.median(step_s[1:])
+    row = {"train_config": {"param_dtype": tc.param_dtype,
+                            "compute_dtype": tc.compute_dtype,
+                            "opt_state_dtype": tc.opt_state_dtype,
+                            "remat": tc.remat, "use_kernels": False},
+           "batch": GRANITE_B, "seq": GRANITE_S, "steps": TRAIN_STEPS,
+           "params_and_opt_state_gb": state_gb,
+           "max_memory_allocated_gb": peak_gb, "metrics": metrics,
+           "step_s": step_s, "steady_step_s_spread": spread(step_s[1:]),
+           "train_tokens_per_s": GRANITE_B * GRANITE_S / steady,
+           "flash_launches": fa_kernel.launches(),
+           "profiled_step_wall_s": wall, "profiled_device_s": dev_s,
+           "device_busy_share": dev_s / wall, "kernels_per_step": kernels,
+           "top_kernels_s": sorted(per_kernel.items(),
+                                   key=lambda kv: -kv[1])[:6]}
+    del params, opt_state
+    torch.cuda.empty_cache()
+    check(all(bool(np.isfinite(list(m.values())).all()) for m in metrics),
+          f"granite train metrics {metrics}")
+    check(row["flash_launches"] == 0, "granite training launched flash")
+    return row
+
+
+def granite_federated(cfg, p32, dev):
+    """FedDCL's launch tier on granite at full width: 2 silos x 2 local
+    steps a round, GRANITE_B x GRANITE_S tokens a step split over the
+    silos, fedavg with fp32 AdamW, GRANITE_FED_ROUNDS rounds from `p32`
+    stacked per silo: the first as its local phase then the sync (the
+    silos compared between), the rest through make_federated_round_step."""
+    d, h, b = 2, 2, GRANITE_B // 2
+    fed = FederatedConfig(num_silos=d, local_steps=h)
+    tc = TrainConfig(model=cfg, shape=InputShape("chip", GRANITE_S,
+                                                 GRANITE_B, "train"),
+                     federated=fed, warmup_steps=2,
+                     total_steps=GRANITE_FED_ROUNDS * h)
+    kw = dict(use_kernels=False, device=dev)
+    phase, opt = make_federated_local_phase_step(cfg, tc, **kw)
+    round_step, _ = make_federated_round_step(cfg, tc, **kw)
+    sync = make_fedavg_sync_step(tc, device=dev)
+    sp = tree_map(lambda a: a.contiguous(), silo_replicate(p32, d))
+    so = silo_opt_init(opt, sp)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+
+    def batches(r):
+        out = [silo_batches(cfg.vocab_size, GRANITE_S, b, d, r * h + i,
+                            seed=0) for i in range(h)]
+        return {k: np.stack([o[k] for o in out]) for k in out[0]}
+
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.reset_launches()
+    losses, moe_aux, round_s, equal = [], [], [], []
+    for r in range(GRANITE_FED_ROUNDS):
+        bs = batches(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if r == 0:
+            sp, so, m = phase(sp, so, bs)
+            parted = not silos_equal(sp)
+            sp, so = sync(sp, so)
+        else:
+            sp, so, m = round_step(sp, so, bs)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        equal.append(silos_equal(sp))
+        losses.append(m["loss"].tolist())
+        moe_aux.append(m["moe_aux"].tolist())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(round_s)
+    row = {"silos": d, "local_steps": h, "per_silo_batch": b,
+           "seq": GRANITE_S, "rounds": GRANITE_FED_ROUNDS,
+           "aggregator": fed.aggregator, "opt_state_dtype": tc.opt_state_dtype,
+           "stacked_params_and_opt_state_gb": state_gb,
+           "max_memory_allocated_gb": peak_gb, "round_s": round_s,
+           "round_s_spread": spread(round_s),
+           "federated_train_tokens_per_s": d * h * b * GRANITE_S / med,
+           "losses": losses, "moe_aux": moe_aux,
+           "silos_parted_before_first_sync": parted,
+           "silos_bitwise_equal_after_each_sync": equal,
+           "flash_launches": fa_kernel.launches()}
+    del sp, so
+    torch.cuda.empty_cache()
+    check(bool(np.isfinite(losses).all()),
+          f"granite federated losses {losses}")
+    check(parted and all(equal),
+          f"granite silos: parted {parted}, equal after each sync {equal}")
+    check(row["flash_launches"] == 0, "granite federated training "
+                                      "launched flash")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2218,6 +2667,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemma_row = phase_gemma2_prefill(dev)
     torch.cuda.empty_cache()
+    granite_row = phase_granite_moe(dev)
+    torch.cuda.empty_cache()
     wkv_rows = phase_wkv6_check(dev, peak)
     train_row, rwkv_params = phase_rwkv6_train(dev, wkv_rows[0])
     rwkv_serve_row = phase_rwkv6_serve(dev, rwkv_params)
@@ -2234,17 +2685,31 @@ def main() -> int:
     def per_fit(key):
         return sum(n * r[key] for n, r in zip(MAIN_COUNTS, main_rows))
 
-    # the bf16 flash kernel's main path: llama3.2-1b's bf16 prefill, one
-    # launch per layer at the first FLASH_SHAPES row; the fp32 one's: the
-    # gemma2-2b fp32 prefill, half its layers local and half global
+    # the bf16 flash kernel's main paths: llama3.2-1b's bf16 prefill and
+    # granite-moe-1b's, one launch per layer at the first and second
+    # FLASH_SHAPES rows; the fp32 one's: the gemma2-2b fp32 prefill, half
+    # its layers local and half global, and granite's fp32 prefill (the
+    # second row's shape)
     flash = {(r["shape"], r["dtype"]): r for r in flash_rows}
-    fa_main = flash[(FLASH_SHAPES[0][0], "bfloat16")]
-    n_fa = prefill_row["bf16"]["flash_launches"]
-    f32_main = [flash[(FLASH_SHAPES[i][0], "float32")] for i in (1, 2)]
-    n_f32 = gemma_row["flash_launches"]
+    granite_pf = granite_row["prefill"]
+    bf16_paths = [
+        (flash[(FLASH_SHAPES[0][0], "bfloat16")],
+         prefill_row["bf16"]["flash_launches"]),
+        (flash[(FLASH_SHAPES[1][0], "bfloat16")],
+         granite_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE])]
+    n_fa = sum(n for _, n in bf16_paths)
 
-    def per_gemma(key):
-        return sum(n_f32 // 2 * r[key] for r in f32_main)
+    def per_bf16(key):
+        return sum(n * r[key] for r, n in bf16_paths)
+    f32_main = [flash[(FLASH_SHAPES[i][0], "float32")] for i in (2, 3)]
+    n_gemma = gemma_row["flash_launches"]
+    f32_paths = [(r, n_gemma // 2) for r in f32_main] + [
+        (flash[(FLASH_SHAPES[1][0], "float32")],
+         granite_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE])]
+    n_f32 = sum(n for _, n in f32_paths)
+
+    def per_f32(key):
+        return sum(n * r[key] for r, n in f32_paths)
     # the WKV6 kernels' main path: the rwkv6-3b train run, every launch at
     # the first WKV_SHAPES row (no PyTorch call computes WKV6 or its
     # gradient: no library)
@@ -2281,27 +2746,33 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
-        "launches": n_fa, "max_abs_err": fa_main["max_abs_err"],
-        "ms": n_fa * fa_main["ms"], "device_ms": n_fa * fa_main["device_ms"],
-        "plain_ms": n_fa * fa_main["plain_ms"],
-        "bound_ms": n_fa * fa_main["bound_ms"],
-        "bound_by": fa_main["bound_by"],
-        "library_ms": n_fa * fa_main["library_ms"]}, {
+        "launches": n_fa,
+        "max_abs_err": max(r["max_abs_err"] for r, _ in bf16_paths),
+        "ms": per_bf16("ms"), "device_ms": per_bf16("device_ms"),
+        "plain_ms": per_bf16("plain_ms"), "bound_ms": per_bf16("bound_ms"),
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r, _ in bf16_paths) else "bytes",
+        "library_ms": per_bf16("library_ms"),
+        "launches_by_path": {"llama3.2-1b bf16 prefill": bf16_paths[0][1],
+                             "granite-moe-1b bf16 prefill":
+                                 bf16_paths[1][1]}}, {
         "name": "flash_attention_fwd_f32_3xtf32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
         "launches": n_f32,
-        "max_abs_err": max(r["max_abs_err"] for r in f32_main),
-        "ms": per_gemma("ms"), "device_ms": per_gemma("device_ms"),
-        "plain_ms": per_gemma("plain_ms"),
-        "bound_ms": per_gemma("bound_ms"),
+        "max_abs_err": max(r["max_abs_err"] for r, _ in f32_paths),
+        "ms": per_f32("ms"), "device_ms": per_f32("device_ms"),
+        "plain_ms": per_f32("plain_ms"), "bound_ms": per_f32("bound_ms"),
         "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                        for r in f32_main) else "bytes",
+                                        for r, _ in f32_paths) else "bytes",
         "bound_kind": f32_main[0]["bound_kind"],
-        "ffma_bound_ms": per_gemma("ffma_bound_ms"),
-        # flex_attention: SDPA has no softcap
-        "library_ms": per_gemma("library_ms")}, {
+        "ffma_bound_ms": per_f32("ffma_bound_ms"),
+        # gemma2's: flex_attention (SDPA has no softcap); granite's: SDPA
+        "library_ms": per_f32("library_ms"),
+        "launches_by_path": {"gemma2-2b fp32 prefill": n_gemma,
+                             "granite-moe-1b fp32 prefill":
+                                 f32_paths[-1][1]}}, {
         "name": "wkv6_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:70",

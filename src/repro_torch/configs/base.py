@@ -121,6 +121,13 @@ class ModelConfig:
 
         return count_params_analytic(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token reaches: a moe model's E - k unchosen
+        experts a layer left out."""
+        from repro_torch.models.backbone import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class InputShape:

@@ -6,8 +6,11 @@ A queue of prompts is served by a fixed-width slot table: finished
 sequences release their slot to the next queued request mid-flight; the
 decode step always runs the full (padded) batch. Slot positions and
 current tokens live on the host (NumPy) and go to the device once per
-step; the decode state (dense: the KV cache; ssm: rwkv6's recurrent and
-token-shift states) lives on the device and is updated in place. On CUDA
+step; the decode state (dense and moe: the KV cache; ssm: rwkv6's
+recurrent and token-shift states) lives on the device and is updated in
+place. A moe model with the gspmd dispatch takes its expert capacity from
+each step's batch, as the reference's does, so a request's tokens depend
+on what the other slots hold. On CUDA
 every decode runs as a captured graph (``make_captured_serve_step``): one
 for the full batch and one per slot for its B=1 prompt steps.
 
@@ -17,6 +20,7 @@ slot's last request left, which the dense family's position mask hides and
 the ssm family's recurrence does not.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b [--device cpu]
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m [--device cpu]
 """
 from __future__ import annotations
 

@@ -151,7 +151,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
     tree, global-norm clip, one optimizer update. Returns (train_step, opt).
 
     ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
-    with metrics ``ce``, ``loss`` and ``grad_norm``. It updates `params`
+    with ``loss_fn``'s metrics (``ce`` and ``loss``; for the moe family
+    also ``moe_aux``, and ``mtp`` with an MTP head) and ``grad_norm``. It
+    updates `params`
     and `opt_state` IN PLACE and returns them (the reference's jitted step
     donates them): the update runs piece by piece (``OPT_PIECE``), so a
     full-width step holds one copy of the params, gradients and moments

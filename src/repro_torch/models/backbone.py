@@ -1,8 +1,13 @@
-"""Backbone LM (counterpart of ``repro.models.backbone``), two families:
+"""Backbone LM (counterpart of ``repro.models.backbone``), three families:
 
   dense : a uniform [attn + SwiGLU] stack (GQA, sliding window, softcap,
           qk-norm per config), with forward, loss, prefill and cached
           single-token decode;
+  moe   : [attn + MoE] layers, after `first_k_dense` leading dense layers
+          (their own stack, ``dense_layers``, and their own KV cache,
+          ``dense_cache``), with the MoE load-balance loss in ``loss_fn``
+          and, where ``mtp_depth`` asks, deepseek's multi-token-prediction
+          head; the same forward, loss, prefill and decode as dense;
   ssm   : rwkv6's [time-mix + channel-mix] stack, with forward, loss,
           prefill (which also returns the recurrent state) and
           single-token decode from that state.
@@ -12,9 +17,10 @@ its weights carry over as they are (``repro_torch.weights``); layers run in
 a Python loop, so gemma2's alternating local/global flag is a concrete bool
 per layer. With ``remat`` each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
-body): its activations are recomputed in the backward pass. The other
-families (moe, hybrid, MLA, modality prefixes) are not ported yet and
-raise NotImplementedError naming ROADMAP.md.
+body): its activations are recomputed in the backward pass, a MoE layer's
+routing included (the same deterministic top-k and stable sort). The
+other families (hybrid, MLA attention, modality prefixes) are not ported
+yet and raise NotImplementedError naming ROADMAP.md.
 
 ``use_kernels`` (the reference's ``use_pallas``) sends the attention of
 forward and prefill through the flash-attention kernel, and rwkv6's
@@ -44,14 +50,19 @@ from repro_torch.tree import tree_leaves, tree_map
 Params = Dict[str, Any]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: the moe (its aux loss and
-    MTP head included), hybrid, MLA and modality-prefix families."""
-    if (cfg.family not in ("dense", "ssm") or cfg.mla is not None
-            or cfg.prefix_frontend):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ported: "
-            f"the dense and ssm families). See ROADMAP.md, Queue 1")
+def _check_ported(cfg: ModelConfig, *, shapes_only: bool = False) -> None:
+    """Raise for what the port does not run yet: the hybrid and
+    modality-prefix families and MLA attention. `shapes_only` (the
+    parameter count) lets MLA through: its init is ported."""
+    if cfg.family not in ("dense", "ssm", "moe") or cfg.prefix_frontend:
+        what = f"family {cfg.family!r}"
+    elif cfg.mla is not None and not shapes_only:
+        what = "MLA attention"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: {what} is not ported yet (ported: the dense, moe and "
+        f"ssm families, without MLA). See ROADMAP.md, Queue 1")
 
 
 # ===========================================================================
@@ -59,12 +70,15 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ===========================================================================
 
 def _init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                      lead=()) -> Params:
+                      lead=(), *, moe_layer: bool = False) -> Params:
+    init_attn = L.init_attention if cfg.mla is None else L.init_mla
     p: Params = {"ln_attn": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
                  "ln_mlp": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
-                 "attn": L.init_attention(gen, cfg, dtype, device, lead),
-                 "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                                   lead)}
+                 "attn": init_attn(gen, cfg, dtype, device, lead)}
+    if moe_layer:
+        p["moe"] = L.init_moe(gen, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, lead)
     if cfg.post_block_norm:
         p["ln_post_attn"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
         p["ln_post_mlp"] = L.init_rmsnorm(cfg.d_model, dtype, device, lead)
@@ -87,7 +101,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     which only shapes). Torch cannot reproduce ``jax.random``: parity runs
     load the reference's weights (``weights.lm_params_from_numpy``)."""
     _check_ported(cfg)
-    dev = resolve_device(device)
+    return _init_tree(cfg, generator, param_dtype, resolve_device(device))
+
+
+def _init_tree(cfg: ModelConfig, generator: Optional[torch.Generator],
+               param_dtype, dev: torch.device) -> Params:
     params: Params = {"embed": torch.empty((cfg.vocab_size, cfg.d_model),
                                            dtype=torch.float32, device=dev)}
     if dev.type != "meta":
@@ -98,9 +116,28 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
         params["lm_head"] = L._dense_init(generator,
                                           (cfg.d_model, cfg.vocab_size),
                                           cfg.d_model, param_dtype, dev)
-    init_block = _init_rwkv_block if cfg.family == "ssm" else _init_dense_block
-    params["layers"] = init_block(generator, cfg, param_dtype, dev,
-                                  lead=(cfg.num_layers,))
+    if cfg.family == "ssm":
+        params["layers"] = _init_rwkv_block(generator, cfg, param_dtype, dev,
+                                            lead=(cfg.num_layers,))
+        return params
+    if cfg.family != "moe":
+        params["layers"] = _init_dense_block(generator, cfg, param_dtype, dev,
+                                             lead=(cfg.num_layers,))
+        return params
+    if cfg.first_k_dense:
+        params["dense_layers"] = _init_dense_block(
+            generator, cfg, param_dtype, dev, lead=(cfg.first_k_dense,))
+    params["layers"] = _init_dense_block(
+        generator, cfg, param_dtype, dev,
+        lead=(cfg.num_layers - cfg.first_k_dense,), moe_layer=True)
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        params["mtp"] = {
+            "proj": L._dense_init(generator, (2 * d, d), 2 * d, param_dtype,
+                                  dev),
+            "ln_h": L.init_rmsnorm(d, param_dtype, dev),
+            "ln_e": L.init_rmsnorm(d, param_dtype, dev),
+            "block": _init_dense_block(generator, cfg, param_dtype, dev)}
     return params
 
 
@@ -144,7 +181,9 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
 
 def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                        positions, is_local: bool, use_kernels: bool,
-                       return_kv: bool = False):
+                       moe_layer: bool = False, return_kv: bool = False):
+    """-> (x, aux) or, with return_kv, (x, aux, (k, v)): aux is the MoE
+    layer's load-balance loss, None for a dense layer."""
     h = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
     attn, kv = L.multi_head_attention(lp["attn"], h, cfg, positions=positions,
                                       is_local=is_local,
@@ -153,47 +192,82 @@ def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
     x = x + attn
     h = L.apply_rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
-    out = L.apply_mlp(lp["mlp"], h)
+    out, aux = _ffn(lp, h, cfg, moe_layer)
     if cfg.post_block_norm:
         out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
     if return_kv:
-        return x + out, kv
-    return x + out
+        return x + out, aux, kv
+    return x + out, aux
+
+
+def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig, moe_layer: bool):
+    """The block's feed-forward half: (out, the MoE aux loss or None)."""
+    if moe_layer:
+        return L.apply_moe(lp["moe"], h, cfg)
+    return L.apply_mlp(lp["mlp"], h), None
 
 
 def _rwkv_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                      use_kernels: bool) -> torch.Tensor:
+                      use_kernels: bool):
     h = L.apply_rmsnorm(lp["ln_att"], x, cfg.norm_eps)
     x = x + L.rwkv6_timemix(lp["tm"], h, cfg, use_kernels=use_kernels)
     h = L.apply_rmsnorm(lp["ln_ffn"], x, cfg.norm_eps)
     h_prev = F.pad(h, (0, 0, 1, 0))[:, :-1]
-    return x + L.rwkv6_channelmix(lp["cm"], h, h_prev)
+    return x + L.rwkv6_channelmix(lp["cm"], h, h_prev), None
+
+
+def _run_stack(body, x: torch.Tensor, stacked: Params, flags: List[bool],
+               remat: bool):
+    """`body(x, layer_params, flag) -> (x, aux or None)` over the stacked
+    layers, each under ``checkpoint`` with `remat` -> (x, the sum of the
+    layers' aux losses, fp32, 0 where none has one)."""
+    auxs = []
+    for lp, flag in zip(_layers(stacked), flags):
+        if remat:
+            x, aux = checkpoint(body, x, lp, flag, use_reentrant=False)
+        else:
+            x, aux = body(x, lp, flag)
+        if aux is not None:
+            auxs.append(aux)
+    if not auxs:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.sum(torch.stack(auxs))
+
+
+def _n_stacked(stacked: Params) -> int:
+    return tree_leaves(stacked)[0].shape[0]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             use_kernels: bool = True, remat: bool = True,
             compute_dtype=torch.bfloat16, return_logits: bool = True):
     """-> (logits (B, T, V) fp32 | None, hidden (B, T, d),
-    {"loss_mask": (B, T)})."""
+    {"moe_aux": the moe layers' summed aux loss (0 for the other
+    families), "loss_mask": (B, T)})."""
     x, positions, loss_mask = embed_inputs(params, tokens, cfg)
     x = x.to(compute_dtype)
-    if cfg.family == "ssm":
-        body = lambda h, lp, flag: _rwkv_block_apply(
-            lp, h, cfg, use_kernels=use_kernels)
-    else:
-        body = lambda h, lp, flag: _dense_block_apply(
-            lp, h, cfg, positions=positions, is_local=flag,
-            use_kernels=use_kernels)
     remat = remat and torch.is_grad_enabled()
-    for lp, flag in zip(_layers(params["layers"]),
-                        _local_flags(cfg, cfg.num_layers)):
-        if remat:
-            x = checkpoint(body, x, lp, flag, use_reentrant=False)
-        else:
-            x = body(x, lp, flag)
+    if cfg.family == "ssm":
+        x, aux = _run_stack(
+            lambda h, lp, flag: _rwkv_block_apply(lp, h, cfg,
+                                                  use_kernels=use_kernels),
+            x, params["layers"], [False] * cfg.num_layers, remat)
+    else:
+        def body(moe_layer):
+            return lambda h, lp, flag: _dense_block_apply(
+                lp, h, cfg, positions=positions, is_local=flag,
+                use_kernels=use_kernels, moe_layer=moe_layer)
+
+        if cfg.family == "moe" and cfg.first_k_dense:
+            # the leading dense layers' aux is nothing, as the reference's
+            x, _ = _run_stack(body(False), x, params["dense_layers"],
+                              _local_flags(cfg, cfg.first_k_dense), remat)
+        n = _n_stacked(params["layers"])
+        x, aux = _run_stack(body(cfg.family == "moe"), x, params["layers"],
+                            _local_flags(cfg, n), remat)
     hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     logits = _lm_logits(params, hidden, cfg) if return_logits else None
-    return logits, hidden, {"loss_mask": loss_mask}
+    return logits, hidden, {"moe_aux": aux, "loss_mask": loss_mask}
 
 
 def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig):
@@ -249,10 +323,13 @@ def chunked_xent(params: Params, hidden: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, use_kernels: bool = True, remat: bool = True,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, mtp_coef: float = 0.3,
+            aux_coef: float = 0.01):
     """batch: tokens (B,S), labels (B,S) (next token, -1 = ignore) ->
-    (loss, {"ce", "loss"}). The reference's moe aux term and MTP head
-    belong to the moe family, which raises (``_check_ported``)."""
+    (loss, metrics): "ce" and "loss", and for the moe family "moe_aux"
+    (added as ``aux_coef`` x it, the reference's keyword default:
+    ``MoEConfig.router_aux_coef`` is read nowhere, as in the reference)
+    and, with an MTP head, "mtp" (added as ``mtp_coef`` x it)."""
     tokens, labels = batch["tokens"], batch["labels"]
     _, hidden, aux = forward(params, tokens, cfg, use_kernels=use_kernels,
                              remat=remat, compute_dtype=compute_dtype,
@@ -260,7 +337,42 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     mask = (labels >= 0) & aux["loss_mask"]
     loss = chunked_xent(params, hidden, torch.clamp(labels, min=0),
                         mask.float(), cfg)
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    if cfg.moe is not None:
+        loss = loss + aux_coef * aux["moe_aux"]
+        metrics["moe_aux"] = aux["moe_aux"]
+    if cfg.mtp_depth and "mtp" in params:
+        mtp = _mtp_loss(params, hidden, tokens, labels, cfg)
+        loss = loss + mtp_coef * mtp
+        metrics["mtp"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(params: Params, hidden: torch.Tensor, tokens: torch.Tensor,
+              labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction (depth 1): at position t, the
+    main hidden state with the embedding of token t+1 predicts token t+2,
+    through one dense block on plain attention."""
+    mp = params["mtp"]
+    B, S, d = hidden.shape
+    h = L.apply_rmsnorm(mp["ln_h"], hidden[:, :-1], cfg.norm_eps)
+    e = params["embed"][tokens[:, 1:].long()].to(h.dtype)
+    e = L.apply_rmsnorm(mp["ln_e"], e, cfg.norm_eps)
+    x = torch.cat([h, e], dim=-1) @ mp["proj"].to(h.dtype)
+    positions = torch.arange(S - 1, dtype=torch.int32,
+                             device=x.device).expand(B, S - 1)
+    x, _ = _dense_block_apply(mp["block"], x, cfg, positions=positions,
+                              is_local=False, use_kernels=False)
+    x = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
+    mtp_labels = labels[:, 1:]          # the labels of t+2; the last is out
+    mask = (mtp_labels >= 0).float()
+    # trim to a chunk multiple so the CE head stays chunked at scale
+    Sm = x.shape[1]
+    keep = (Sm // XENT_CHUNK) * XENT_CHUNK if Sm > XENT_CHUNK else Sm
+    return chunked_xent(params, x[:, :keep],
+                        torch.clamp(mtp_labels[:, :keep], min=0),
+                        mask[:, :keep], cfg)
 
 
 # ===========================================================================
@@ -303,18 +415,35 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, state = _prefill_rwkv(params["layers"], x, cfg)
         return (_last_logits(params, x, cfg), state,
                 torch.full((B,), T, dtype=torch.int32, device=x.device))
+    kw = dict(positions=positions, use_kernels=use_kernels,
+              cache_len=cache_len, cache_dtype=cache_dtype)
+    state: Params = {}
+    if cfg.first_k_dense:
+        x, state["dense_cache"] = _prefill_attn_stack(
+            params["dense_layers"], x, cfg, moe_layer=False, **kw)
+    x, state["cache"] = _prefill_attn_stack(
+        params["layers"], x, cfg, moe_layer=cfg.family == "moe", **kw)
+    next_pos = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    return _last_logits(params, x, cfg), state, next_pos
+
+
+def _prefill_attn_stack(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
+                        *, positions, moe_layer: bool, use_kernels: bool,
+                        cache_len: int, cache_dtype):
+    """The attention layers of one stack over the prompt, each filling its
+    layer of a new ring KV cache as it goes -> (x, cache)."""
+    n = _n_stacked(stacked)
     pos1d = positions[0]
-    cache = L.init_kv_cache(cfg, B, cache_len, cfg.num_layers, cache_dtype,
+    cache = L.init_kv_cache(cfg, x.shape[0], cache_len, n, cache_dtype,
                             x.device)
     _entries_to_cache(cache, pos1d)
-    for i, (lp, flag) in enumerate(zip(_layers(params["layers"]),
-                                       _local_flags(cfg, cfg.num_layers))):
-        x, kv = _dense_block_apply(lp, x, cfg, positions=positions,
-                                   is_local=flag, use_kernels=use_kernels,
-                                   return_kv=True)
+    for i, (lp, flag) in enumerate(zip(_layers(stacked),
+                                       _local_flags(cfg, n))):
+        x, _, kv = _dense_block_apply(
+            lp, x, cfg, positions=positions, is_local=flag,
+            use_kernels=use_kernels, moe_layer=moe_layer, return_kv=True)
         _fill_cache(cache, i, kv, pos1d)
-    next_pos = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    return _last_logits(params, x, cfg), {"cache": cache}, next_pos
+    return x, cache
 
 
 def _last_logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -348,9 +477,11 @@ def _prefill_rwkv(stacked: Params, x: torch.Tensor, cfg: ModelConfig):
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=torch.bfloat16, *,
                       device: DeviceLike = None) -> Params:
-    """State tree for serve_step: the KV cache (dense; cache_len should be
-    min(seq_len, window) for pure sliding-window configs), or rwkv6's fp32
-    recurrent state and token-shift states (ssm; no cache_len or dtype)."""
+    """State tree for serve_step: the KV cache (dense and moe, which also
+    has a ``dense_cache`` for its `first_k_dense` leading layers;
+    cache_len should be min(seq_len, window) for pure sliding-window
+    configs), or rwkv6's fp32 recurrent state and token-shift states (ssm;
+    no cache_len or dtype)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "ssm":
@@ -360,8 +491,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
         return {"wkv": zeros(cfg.num_heads, hd, hd),
                 "x_prev_att": zeros(cfg.d_model),
                 "x_prev_ffn": zeros(cfg.d_model)}
-    return {"cache": L.init_kv_cache(cfg, batch, cache_len, cfg.num_layers,
-                                     dtype, dev)}
+    state: Params = {}
+    if cfg.first_k_dense:
+        state["dense_cache"] = L.init_kv_cache(cfg, batch, cache_len,
+                                               cfg.first_k_dense, dtype, dev)
+    state["cache"] = L.init_kv_cache(cfg, batch, cache_len,
+                                     cfg.num_layers - cfg.first_k_dense,
+                                     dtype, dev)
+    return state
 
 
 def decode_step(params: Params, state: Params, tokens: torch.Tensor,
@@ -379,15 +516,23 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     if cfg.family == "ssm":
         x = _decode_rwkv_stack(params["layers"], state, x, cfg)
     else:
+        if cfg.first_k_dense:
+            x = _decode_attn_stack(params["dense_layers"],
+                                   state["dense_cache"], x, cur_pos, cfg,
+                                   moe_layer=False)
         x = _decode_attn_stack(params["layers"], state["cache"], x, cur_pos,
-                               cfg, n=cfg.num_layers)
+                               cfg, moe_layer=cfg.family == "moe")
     hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     return _lm_logits(params, hidden, cfg), state
 
 
 def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
-                       cur_pos: torch.Tensor, cfg: ModelConfig, *, n: int):
-    """Run the n layers on one token, writing each layer's cache in place."""
+                       cur_pos: torch.Tensor, cfg: ModelConfig, *,
+                       moe_layer: bool):
+    """Run a stack's layers on one token, writing each layer's cache in
+    place. A MoE layer routes the step's B tokens together: its capacity
+    comes from B, as the reference's does."""
+    n = _n_stacked(stacked)
     for i, (lp, flag) in enumerate(zip(_layers(stacked),
                                        _local_flags(cfg, n))):
         hn = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
@@ -398,7 +543,7 @@ def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
             attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
         x = x + attn
         hn = L.apply_rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
-        out = L.apply_mlp(lp["mlp"], hn)
+        out, _ = _ffn(lp, hn, cfg, moe_layer)
         if cfg.post_block_norm:
             out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
         x = x + out
@@ -424,8 +569,23 @@ def _decode_rwkv_stack(stacked: Params, state: Params, x: torch.Tensor,
 # parameter counts (exact — from the port's init on the meta device)
 # ===========================================================================
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    """Parameters of `init_params(cfg)`, shaped on the `meta` device (no
-    memory, no draws)."""
-    shapes = init_params(cfg, None, torch.float32, device="meta")
-    return sum(t.numel() for t in tree_leaves(shapes))
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
+                          include_embed: bool = True) -> int:
+    """Parameters of the init's tree, shaped on the `meta` device (no
+    memory, no draws); MLA's are counted, its attention unported. With
+    `include_embed` False the embedding (and an untied head) is left out;
+    with `active_only` the experts a token does not reach (E - k of them
+    in every moe layer) are, as the reference counts them."""
+    _check_ported(cfg, shapes_only=True)
+    shapes = _init_tree(cfg, None, torch.float32, torch.device("meta"))
+    total = sum(t.numel() for t in tree_leaves(shapes))
+    if not include_embed:
+        total -= cfg.vocab_size * cfg.d_model
+        if not cfg.tie_embeddings:
+            total -= cfg.vocab_size * cfg.d_model
+    if active_only and cfg.moe is not None:
+        mo = cfg.moe
+        n_moe = cfg.num_layers - cfg.first_k_dense
+        total -= (n_moe * 3 * cfg.d_model * mo.d_ff_expert
+                  * (mo.num_experts - mo.top_k))
+    return total

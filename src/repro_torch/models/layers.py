@@ -1,8 +1,10 @@
 """Layer library, the subset ported so far: RMSNorm, RoPE, attention (GQA /
 sliding window / softcap / qk-norm) for prefill and for cached decode, the
-SwiGLU MLP, and RWKV6's time mix and channel mix (full-sequence and
-single-token decode) with the chunk-level linear recurrence they need
-(counterpart of ``repro.models.layers``).
+SwiGLU MLP, the mixture of experts (both routers, shared experts, the
+dense and the capacity-based gspmd dispatch, the load-balance loss), MLA's
+init (its attention is not ported), and RWKV6's time mix and channel mix
+(full-sequence and single-token decode) with the chunk-level linear
+recurrence they need (counterpart of ``repro.models.layers``).
 
 Functional style, as the reference: ``init_*`` builds a dict of tensors,
 ``apply_*`` consumes it, in the reference's layouts (``wq`` (d, H, hd),
@@ -233,6 +235,32 @@ def sdpa_reference(q, k, v, *, q_pos, k_pos, is_local, window,
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
 
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+             lead: Shape = ()) -> Params:
+    """DeepSeek's multi-head latent attention params, in the reference's
+    tree. Only the init is ported: it shapes the parameter count
+    (``backbone.count_params_analytic``); MLA's attention and decode are
+    not, and a config with ``mla`` raises at ``backbone.init_params``."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r_q, r_kv = m.q_lora_rank, m.kv_lora_rank
+    return {
+        "w_dq": _dense_init(gen, lead + (d, r_q), d, dtype, device),
+        "q_norm": init_rmsnorm(r_q, dtype, device, lead),
+        "w_uq": _dense_init(gen, lead + (r_q, H, qk), r_q, dtype, device),
+        "w_dkv": _dense_init(gen, lead + (d, r_kv + m.qk_rope_head_dim), d,
+                             dtype, device),
+        "kv_norm": init_rmsnorm(r_kv, dtype, device, lead),
+        "w_uk": _dense_init(gen, lead + (r_kv, H, m.qk_nope_head_dim), r_kv,
+                            dtype, device),
+        "w_uv": _dense_init(gen, lead + (r_kv, H, m.v_head_dim), r_kv, dtype,
+                            device),
+        "wo": _dense_init(gen, lead + (H, m.v_head_dim, d), H * m.v_head_dim,
+                          dtype, device),
+    }
+
+
 # --------------------------------------------------------------------------
 # Attention — single-token decode against a ring-buffer KV cache
 # --------------------------------------------------------------------------
@@ -306,6 +334,154 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+             lead: Shape = ()) -> Params:
+    mo = cfg.moe
+    d, E, f = cfg.d_model, mo.num_experts, mo.d_ff_expert
+    p = {
+        # the router stays fp32 whatever the param dtype
+        "router": _dense_init(gen, lead + (d, E), d, torch.float32, device),
+        "w_gate": _dense_init(gen, lead + (E, d, f), d, dtype, device),
+        "w_up": _dense_init(gen, lead + (E, d, f), d, dtype, device),
+        "w_down": _dense_init(gen, lead + (E, f, d), f, dtype, device),
+    }
+    if mo.router == "sigmoid":          # deepseek-v3's aux-free bias
+        p["router_bias"] = torch.zeros(lead + (E,), dtype=torch.float32,
+                                       device=device)
+    if mo.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, mo.d_ff_shared * mo.num_shared_experts,
+                               dtype, device, lead)
+    return p
+
+
+def _router_probs(p: Params, x2d: torch.Tensor, mo):
+    """x2d: (T, d) -> (gates (T, k), idx (T, k), probs (T, E) fp32). Both
+    routers: softmax -> top-k -> renormalised gates; sigmoid -> top-k of
+    the bias-shifted scores (the bias moves the selection only) -> the
+    chosen probabilities renormalised, times ``routed_scaling``."""
+    logits = x2d.float() @ p["router"].float()
+    if mo.router == "sigmoid":
+        probs = torch.sigmoid(logits)
+        sel = probs + p["router_bias"].float()[None, :]
+        idx = torch.topk(sel, mo.top_k, dim=-1).indices
+        gates = torch.gather(probs, -1, idx)
+        gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+        gates = gates * mo.routed_scaling
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        gates, idx = torch.topk(probs, mo.top_k, dim=-1)
+        gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+    return gates, idx, probs
+
+
+def moe_aux_loss(probs: torch.Tensor, idx: torch.Tensor, mo) -> torch.Tensor:
+    """Switch-style load-balance loss: E * sum_e f_e * P_e. The counts are
+    a scatter-add (no host sync, so a captured step can run it)."""
+    E = mo.num_experts
+    T = probs.shape[0]
+    counts = torch.zeros((E,), dtype=torch.float32, device=probs.device)
+    counts = counts.index_add(0, idx.reshape(-1),
+                              torch.ones(idx.numel(), dtype=torch.float32,
+                                         device=probs.device))
+    f = counts / (T * mo.top_k)
+    P = probs.mean(dim=0)
+    return E * torch.sum(f * P)
+
+
+def apply_moe_dense(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Every token through every expert, weighted by its (top-k masked)
+    gate: the reference's path for tiny configs. O(T·E·d·f) work."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    x2d = x.reshape(-1, d)
+    gates, idx, probs = _router_probs(p, x2d, mo)
+    dense_gates = torch.zeros((x2d.shape[0], mo.num_experts),
+                              dtype=torch.float32, device=x.device)
+    dense_gates = dense_gates.scatter_add(1, idx, gates)
+    g = torch.einsum("td,edf->tef", x2d, p["w_gate"].to(x.dtype))
+    u = torch.einsum("td,edf->tef", x2d, p["w_up"].to(x.dtype))
+    y = torch.einsum("tef,efd->ted", F.silu(g) * u, p["w_down"].to(x.dtype))
+    out = torch.einsum("ted,te->td", y.float(), dense_gates).to(x.dtype)
+    if mo.num_shared_experts:
+        out = out + apply_mlp(p["shared"], x2d)
+    return out.reshape(B, S, d), moe_aux_loss(probs, idx, mo)
+
+
+def moe_dispatch(idx: torch.Tensor, cap: int, E: int):
+    """The gspmd path's queue positions. idx (T, k) -> (flat_e (T·k,),
+    slot (T·k,), keep (T·k,) bool): each (token, slot) pair's place in its
+    expert's queue, by a stable sort on the expert id, so earlier tokens
+    (and, within a token, earlier slots) come first; a place at or past
+    `cap` is dropped and points at the overflow slot `cap`. No host sync:
+    sort, searchsorted and scatter run on the device."""
+    flat_e = idx.reshape(-1)
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(E, dtype=sorted_e.dtype, device=idx.device))
+    pos_sorted = torch.arange(n, device=idx.device) - starts[sorted_e]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos < cap
+    slot = torch.where(keep, pos, cap)
+    return flat_e, slot, keep
+
+
+def apply_moe_gspmd(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Capacity-based dispatch by scatter and gather, the reference's
+    Switch semantics: capacity cap = max(int(capacity_factor·T·k/E), 1)
+    from this call's own T tokens (so a decode step's output depends on
+    its batch-mates), tokens over capacity dropped. Each (token, slot)
+    row is written to (expert, place) of an (E, cap + 1, d) buffer; the
+    dropped rows all land in the overflow slot `cap`, which is cut off
+    before any use, as the reference's ``buf[:, :cap]`` is (which of them
+    lands there does not matter). The expert products are batched
+    matmuls over E."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = mo.num_experts, mo.top_k
+    x2d = x.reshape(T, d)
+    gates, idx, probs = _router_probs(p, x2d, mo)
+    cap = max(int(mo.capacity_factor * T * k / E), 1)
+    flat_e, slot, keep = moe_dispatch(idx, cap, E)
+
+    src = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)   # t-major
+    buf = x.new_zeros((E, cap + 1, d)).index_put_((flat_e, slot), src)
+    ebuf = buf[:, :cap]
+    g = torch.bmm(ebuf, p["w_gate"].to(x.dtype))
+    u = torch.bmm(ebuf, p["w_up"].to(x.dtype))
+    y = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+
+    # back to the (token, slot) rows: a dropped row reads the zero pad. A
+    # row gather of the flattened buffer, whose gradient is an index_add
+    # into distinct rows (the pad's, discarded, aside)
+    y_pad = torch.cat([y, y.new_zeros((E, 1, d))], dim=1)
+    back = y_pad.reshape(E * (cap + 1), d).index_select(
+        0, flat_e * (cap + 1) + slot)                          # (T·k, d)
+    w = (gates.reshape(-1) * keep.float()).to(x.dtype)
+    out = torch.sum((back * w[:, None]).reshape(T, k, d), dim=1)
+    if mo.num_shared_experts:
+        out = out + apply_mlp(p["shared"], x2d)
+    return out.reshape(B, S, d), moe_aux_loss(probs, idx, mo)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """-> (out (B, S, d), aux loss). impl "dense", "gspmd" or "ep" (the
+    expert-parallel path, ``moe_ep``, which on one card is gspmd's)."""
+    impl = cfg.moe.impl
+    if impl == "dense":
+        return apply_moe_dense(p, x, cfg)
+    if impl == "ep":
+        from repro_torch.models.moe_ep import apply_moe_ep
+        return apply_moe_ep(p, x, cfg)
+    return apply_moe_gspmd(p, x, cfg)
 
 
 # --------------------------------------------------------------------------

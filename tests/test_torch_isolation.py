@@ -29,6 +29,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.flash_attention.kernel",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.models.layers", "repro_torch.models.backbone",
+            "repro_torch.models.moe_ep",
             "repro_torch.configs.gemma2_2b", "repro_torch.launch.steps",
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.data.tokens", "repro_torch.kernels.rwkv6.kernel",

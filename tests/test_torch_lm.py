@@ -226,11 +226,11 @@ def test_param_count_equals_reference_for_dense():
 
 
 def test_unported_families_raise():
-    """moe, hybrid, MLA and modality-prefix configs raise at init and on
-    the serving path; dense and ssm (rwkv6, whose prefill and decode are
-    ported) do not."""
+    """hybrid, MLA and modality-prefix configs raise at init and on the
+    serving path; dense, ssm (rwkv6, whose prefill and decode are ported)
+    and moe without MLA (granite-moe) do not."""
     archs = tconfigs.ARCHS.values()
-    others = [c for c in archs if c.family not in ("dense", "ssm")
+    others = [c for c in archs if c.family not in ("dense", "ssm", "moe")
               or c.mla is not None or c.prefix_frontend]
     assert {c.family for c in others} >= {"moe", "hybrid"}
     assert any(c.mla is not None for c in others)
@@ -241,7 +241,7 @@ def test_unported_families_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbb.init_decode_state(cfg, 1, 8, device="cpu")
     ported = [c for c in archs if c not in others]
-    assert {c.family for c in ported} == {"dense", "ssm"}
+    assert {c.family for c in ported} == {"dense", "ssm", "moe"}
     for cfg in ported:
         state = tbb.init_decode_state(cfg, 1, 8, device="meta")
         assert state
