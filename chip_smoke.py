@@ -69,7 +69,17 @@ these paths through the port's public entry points:
   bitwise the same logits), BatchedServer eager and captured, 5 train
   steps under TrainConfig's defaults on plain attention, and FedDCL's
   federated round (2 silos x 2 local steps, fedavg, 3 rounds, the silos
-  equal after each sync).
+  equal after each sync);
+- the hybrid family at full width and depth with random weights from a
+  seed: zamba2-1.2b (38 Mamba2 blocks, the weight-shared attention +
+  SwiGLU block after every 6th, MHA 32/32 heads) prefilled in bf16 and
+  fp32 (B=4 x 2048, 6 launches of each flash route at the MHA layout,
+  held against the plain path; the SSD scans' share of the bf16
+  prefill's device time by CUDA events), fp32 prefill(2047) + one decode
+  held to the forward, 32 bf16 decode steps eager and captured,
+  BatchedServer eager and captured with a reused slot against fresh
+  servers, 5 train steps under TrainConfig's defaults on plain
+  attention, and 3 fedavg rounds of 2 silos x 2 local steps.
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step, the federated rounds) give min / median / max
@@ -174,6 +184,7 @@ GEMMA = ARCHS["gemma2-2b"]
 FLASH_SHAPES = [
     ("llama3.2-1b prefill", 4, 32, 8, 2048, 2048, 64, 0, 0.0, 0),
     ("granite-moe-1b prefill", 4, 16, 8, 2048, 2048, 64, 0, 0.0, 0),
+    ("zamba2-1.2b prefill", 4, 32, 32, 2048, 2048, 64, 0, 0.0, 0),
     ("gemma2-2b local layer", 1, 8, 4, 8192, 8192, 256, 4096, 50.0, 0),
     ("gemma2-2b global layer", 1, 8, 4, 8192, 8192, 256, 0, 50.0, 0),
     ("q tail at q_offset", 4, 32, 8, 256, 2048, 64, 0, 0.0, 1792),
@@ -227,6 +238,15 @@ FED_SYNCS = ("fedavg", "median", "krum")
 GRANITE = ARCHS["granite-moe-1b-a400m"]
 GRANITE_B, GRANITE_S, GRANITE_CACHE = 4, 2048, 4096
 GRANITE_FED_ROUNDS = 3
+# zamba2-1.2b (the hybrid family) at full width and depth: bf16 and fp32
+# prefills of ZAMBA_B x ZAMBA_S (the zamba2 FLASH_SHAPES row: MHA, one K/V
+# head a query head), the fp32 prefill(S - 1) + decode handoff at B = 1, a
+# bf16 decode from the bf16 prefill, BatchedServer (and a reused slot
+# against fresh servers), TrainConfig's train steps and federated rounds
+ZAMBA = ARCHS["zamba2-1.2b"]
+ZAMBA_B, ZAMBA_S, ZAMBA_CACHE = 4, 2048, 4096
+ZAMBA_FED_ROUNDS = 3
+ZAMBA_REUSE_REQUESTS = 3  # served in turn through one slot, and each alone
 # a routing flip (a token's chosen experts differ between two paths) in
 # the first layer that has one, where the two paths' inputs differ by
 # rounding only, is explained when the plain path's top-k margin there is
@@ -2279,13 +2299,14 @@ def rel_dev(a, b) -> float:
                  / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
 
 
-def cache_rel(state, ref_state) -> float:
-    """rel over every layer's cached keys and values together."""
+def state_rel(state, ref_state) -> float:
+    """rel over every float leaf of two decode states together: every
+    layer's cached keys and values (and a hybrid's Mamba2 conv windows and
+    SSM states)."""
     num = den = 0.0
-    for part in ref_state:
-        for name in ("k", "v"):
-            a = state[part][name].double()
-            b = ref_state[part][name].double()
+    for a, b in zip(tree_leaves(state), tree_leaves(ref_state)):
+        if b.is_floating_point():
+            a, b = a.double(), b.double()
             num += float(torch.sum(torch.square(a - b)))
             den += float(torch.sum(torch.square(b)))
     return (num / max(den, 1e-300)) ** 0.5
@@ -2322,7 +2343,7 @@ def granite_prefills(cfg, p32, p16, dev):
     logits = {key: o[0] for key, o in out.items()}
     ref_logits, ref_state = logits["fp32", False], out["fp32", False][1]
     lrel = {key: rel_dev(logits[key], ref_logits) for key in logits}
-    crel = {key: cache_rel(out[key][1], ref_state) for key in out}
+    crel = {key: state_rel(out[key][1], ref_state) for key in out}
     row = {"batch": GRANITE_B, "seq": GRANITE_S, "cache_len": GRANITE_CACHE,
            "bf16": {
                "flash_launches": launches["bf16", True],
@@ -2468,8 +2489,9 @@ def phase_granite_moe(dev):
                                   total / eager_serve_s,
                               "captured": captured_server}}
 
-    train = granite_train(cfg, p32, dev)
-    fed = granite_federated(cfg, p32, dev)
+    train = lm_train(cfg, p32, dev, GRANITE_B, GRANITE_S)
+    fed = lm_federated(cfg, p32, dev, GRANITE_B, GRANITE_S,
+                       GRANITE_FED_ROUNDS)
     row = {"phase": "granite_moe", "arch": cfg.name,
            "params": cfg.param_count(),
            "active_params": cfg.active_param_count(),
@@ -2514,20 +2536,18 @@ def phase_granite_moe(dev):
     return row
 
 
-def granite_train(cfg, p32, dev):
+def lm_train(cfg, p32, dev, B, S):
     """TRAIN_STEPS of make_train_step at TrainConfig's defaults (fp32
-    params, bf16 compute, fp32 AdamW, remat) on GRANITE_B x GRANITE_S
-    tokens, on plain attention, as train() runs moe, from a copy of
-    `p32`."""
-    tc = TrainConfig(model=cfg, shape=InputShape("chip", GRANITE_S,
-                                                 GRANITE_B, "train"),
+    params, bf16 compute, fp32 AdamW, remat) on B x S tokens, on plain
+    attention, as train() runs moe and hybrid, from a copy of `p32`."""
+    tc = TrainConfig(model=cfg, shape=InputShape("chip", S, B, "train"),
                      warmup_steps=2, total_steps=TRAIN_STEPS)
     params = tree_map(torch.clone, p32)
     step, opt = make_train_step(cfg, tc, use_kernels=False, device=dev)
     opt_state = opt.init(params)
     torch.cuda.synchronize()
     state_gb = torch.cuda.memory_allocated() / 1e9
-    stream = TokenStream(cfg.vocab_size, GRANITE_S, GRANITE_B, seed=0)
+    stream = TokenStream(cfg.vocab_size, S, B, seed=0)
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_launches()
     metrics, step_s = [], []
@@ -2547,11 +2567,11 @@ def granite_train(cfg, p32, dev):
                             "compute_dtype": tc.compute_dtype,
                             "opt_state_dtype": tc.opt_state_dtype,
                             "remat": tc.remat, "use_kernels": False},
-           "batch": GRANITE_B, "seq": GRANITE_S, "steps": TRAIN_STEPS,
+           "batch": B, "seq": S, "steps": TRAIN_STEPS,
            "params_and_opt_state_gb": state_gb,
            "max_memory_allocated_gb": peak_gb, "metrics": metrics,
            "step_s": step_s, "steady_step_s_spread": spread(step_s[1:]),
-           "train_tokens_per_s": GRANITE_B * GRANITE_S / steady,
+           "train_tokens_per_s": B * S / steady,
            "flash_launches": fa_kernel.launches(),
            "profiled_step_wall_s": wall, "profiled_device_s": dev_s,
            "device_busy_share": dev_s / wall, "kernels_per_step": kernels,
@@ -2560,23 +2580,21 @@ def granite_train(cfg, p32, dev):
     del params, opt_state
     torch.cuda.empty_cache()
     check(all(bool(np.isfinite(list(m.values())).all()) for m in metrics),
-          f"granite train metrics {metrics}")
-    check(row["flash_launches"] == 0, "granite training launched flash")
+          f"{cfg.name} train metrics {metrics}")
+    check(row["flash_launches"] == 0, f"{cfg.name} training launched flash")
     return row
 
 
-def granite_federated(cfg, p32, dev):
-    """FedDCL's launch tier on granite at full width: 2 silos x 2 local
-    steps a round, GRANITE_B x GRANITE_S tokens a step split over the
-    silos, fedavg with fp32 AdamW, GRANITE_FED_ROUNDS rounds from `p32`
-    stacked per silo: the first as its local phase then the sync (the
-    silos compared between), the rest through make_federated_round_step."""
-    d, h, b = 2, 2, GRANITE_B // 2
+def lm_federated(cfg, p32, dev, B, S, rounds):
+    """FedDCL's launch tier at full width: 2 silos x 2 local steps a
+    round, B x S tokens a step split over the silos, fedavg with fp32
+    AdamW, `rounds` rounds from `p32` stacked per silo: the first as its
+    local phase then the sync (the silos compared between), the rest
+    through make_federated_round_step."""
+    d, h, b = 2, 2, B // 2
     fed = FederatedConfig(num_silos=d, local_steps=h)
-    tc = TrainConfig(model=cfg, shape=InputShape("chip", GRANITE_S,
-                                                 GRANITE_B, "train"),
-                     federated=fed, warmup_steps=2,
-                     total_steps=GRANITE_FED_ROUNDS * h)
+    tc = TrainConfig(model=cfg, shape=InputShape("chip", S, B, "train"),
+                     federated=fed, warmup_steps=2, total_steps=rounds * h)
     kw = dict(use_kernels=False, device=dev)
     phase, opt = make_federated_local_phase_step(cfg, tc, **kw)
     round_step, _ = make_federated_round_step(cfg, tc, **kw)
@@ -2587,14 +2605,14 @@ def granite_federated(cfg, p32, dev):
     state_gb = torch.cuda.memory_allocated() / 1e9
 
     def batches(r):
-        out = [silo_batches(cfg.vocab_size, GRANITE_S, b, d, r * h + i,
-                            seed=0) for i in range(h)]
+        out = [silo_batches(cfg.vocab_size, S, b, d, r * h + i, seed=0)
+               for i in range(h)]
         return {k: np.stack([o[k] for o in out]) for k in out[0]}
 
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_launches()
     losses, moe_aux, round_s, equal = [], [], [], []
-    for r in range(GRANITE_FED_ROUNDS):
+    for r in range(rounds):
         bs = batches(r)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2608,28 +2626,322 @@ def granite_federated(cfg, p32, dev):
         round_s.append(time.perf_counter() - t0)
         equal.append(silos_equal(sp))
         losses.append(m["loss"].tolist())
-        moe_aux.append(m["moe_aux"].tolist())
+        if "moe_aux" in m:
+            moe_aux.append(m["moe_aux"].tolist())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(round_s)
     row = {"silos": d, "local_steps": h, "per_silo_batch": b,
-           "seq": GRANITE_S, "rounds": GRANITE_FED_ROUNDS,
+           "seq": S, "rounds": rounds,
            "aggregator": fed.aggregator, "opt_state_dtype": tc.opt_state_dtype,
            "stacked_params_and_opt_state_gb": state_gb,
            "max_memory_allocated_gb": peak_gb, "round_s": round_s,
            "round_s_spread": spread(round_s),
-           "federated_train_tokens_per_s": d * h * b * GRANITE_S / med,
-           "losses": losses, "moe_aux": moe_aux,
+           "federated_train_tokens_per_s": d * h * b * S / med,
+           "losses": losses, **({"moe_aux": moe_aux} if moe_aux else {}),
            "silos_parted_before_first_sync": parted,
            "silos_bitwise_equal_after_each_sync": equal,
            "flash_launches": fa_kernel.launches()}
     del sp, so
     torch.cuda.empty_cache()
     check(bool(np.isfinite(losses).all()),
-          f"granite federated losses {losses}")
+          f"{cfg.name} federated losses {losses}")
     check(parted and all(equal),
-          f"granite silos: parted {parted}, equal after each sync {equal}")
-    check(row["flash_launches"] == 0, "granite federated training "
+          f"{cfg.name} silos: parted {parted}, equal after each sync {equal}")
+    check(row["flash_launches"] == 0, f"{cfg.name} federated training "
                                       "launched flash")
+    return row
+
+
+# -- phase 14: zamba2-1.2b, the hybrid family ---------------------------------
+
+@contextlib.contextmanager
+def ssd_timer():
+    """Time every ssd_chunked call (the SSD scan of each Mamba2 block) by
+    CUDA events around it while the block runs: [(start, end)], read
+    after a synchronize."""
+    events = []
+    real = model_layers.ssd_chunked
+
+    def timed(*args, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        out = real(*args, **kw)
+        e.record()
+        events.append((s, e))
+        return out
+
+    model_layers.ssd_chunked = timed
+    try:
+        yield events
+    finally:
+        model_layers.ssd_chunked = real
+
+
+def zamba2_prefills(cfg, p32, p16, dev):
+    """fp32 and bf16 prefills of the same ZAMBA_B x ZAMBA_S prompt, each on
+    the kernel path (counted by route) and on the plain path; the bf16
+    kernel path profiled, its SSD scans timed. Returns (row, the bf16
+    kernel path's logits and state for decode)."""
+    tokens = {"tokens": random_tokens(17, (ZAMBA_B, ZAMBA_S),
+                                      cfg.vocab_size, dev)}
+    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+    steps = {(dt, k): make_prefill_step(cfg, cache_len=ZAMBA_CACHE,
+                                        use_kernels=k, device=dev,
+                                        **(f32 if dt == "fp32" else {}))
+             for dt in ("fp32", "bf16") for k in (True, False)}
+    params = {"fp32": p32, "bf16": p16}
+    out, launches, secs = {}, {}, {}
+    for dt in ("fp32", "bf16"):
+        for k in (True, False):
+            fa_kernel.reset_launches()
+            out[dt, k] = steps[dt, k](params[dt], tokens)
+            torch.cuda.synchronize()
+            launches[dt, k] = dict(fa_kernel.route_launches)
+            secs[dt, k] = wall_s(lambda: steps[dt, k](params[dt], tokens),
+                                 reps=3 if (dt, k) == ("bf16", True) else 1)
+    bf16_kernel = lambda: steps["bf16", True](p16, tokens)
+    _, per_kernel, kernels, _ = profile_device(bf16_kernel)
+    dev_s = sum(per_kernel.values())
+    with ssd_timer() as ssd_events:
+        bf16_kernel()
+    torch.cuda.synchronize()
+    ssd_s = sum(s.elapsed_time(e) for s, e in ssd_events) / 1e3
+    logits = {key: o[0] for key, o in out.items()}
+    ref_logits, ref_state = logits["fp32", False], out["fp32", False][1]
+    lrel = {key: rel_dev(logits[key], ref_logits) for key in logits}
+    srel = {key: state_rel(out[key][1], ref_state) for key in out}
+    row = {"batch": ZAMBA_B, "seq": ZAMBA_S, "cache_len": ZAMBA_CACHE,
+           "bf16": {
+               "flash_launches": launches["bf16", True],
+               "plain_path_launches": launches["bf16", False],
+               "prefill_s": secs["bf16", True],
+               "prefill_tokens_per_s": ZAMBA_B * ZAMBA_S
+                                       / secs["bf16", True],
+               "plain_path_s": secs["bf16", False],
+               "profiled_device_s": dev_s, "kernels": kernels,
+               "flash_share_of_device_time": sum(
+                   t for n, t in per_kernel.items()
+                   if "flash_fwd_kernel_wgmma" in n) / dev_s,
+               "ssd_calls": len(ssd_events), "ssd_event_s": ssd_s,
+               "ssd_share_of_device_time": ssd_s / dev_s,
+               "top_kernels_s": sorted(per_kernel.items(),
+                                       key=lambda kv: -kv[1])[:8],
+               "vs_fp32_plain": {
+                   "kernel_path_logits_rel": lrel["bf16", True],
+                   "plain_path_logits_rel": lrel["bf16", False],
+                   "kernel_path_state_rel": srel["bf16", True],
+                   "plain_path_state_rel": srel["bf16", False]},
+               "logits_finite": bool(torch.isfinite(
+                   logits["bf16", True]).all())},
+           "fp32": {
+               "flash_launches": launches["fp32", True],
+               "kernel_path_s": secs["fp32", True],
+               "plain_path_s": secs["fp32", False],
+               "kernel_vs_plain_logits_rel": lrel["fp32", True],
+               "kernel_vs_plain_state_rel": srel["fp32", True],
+               "logits_finite": bool(torch.isfinite(
+                   logits["fp32", True]).all())}}
+    keep = out["bf16", True]
+    del out
+    return row, keep
+
+
+def zamba2_handoff(cfg, p32, dev):
+    """fp32 at B = 1: prefill(S - 1) (the last SSD chunk padded) then one
+    decode step, against the forward's last position over all S tokens:
+    the padded scan's final state, the conv window and the KV cache carry
+    the prompt into decode."""
+    tok = random_tokens(18, (1, ZAMBA_S), cfg.vocab_size, dev)
+    f32 = dict(compute_dtype=torch.float32)
+    _, state, nxt = make_prefill_step(cfg, cache_len=ZAMBA_CACHE,
+                                      cache_dtype=torch.float32, device=dev,
+                                      **f32)(p32, {"tokens": tok[:, :-1]})
+    ldec, _ = make_serve_step(cfg, device=dev, **f32)(p32, state, tok[:, -1:],
+                                                      nxt)
+    with torch.no_grad():
+        full, _, _ = bb.forward(p32, tok, cfg, **f32)
+    return {"prefill_len": ZAMBA_S - 1, "chunk": cfg.ssm.chunk,
+            "decode_vs_forward_logits_rel": rel_dev(ldec[:, 0], full[:, -1]),
+            "logits_finite": bool(torch.isfinite(ldec).all())}
+
+
+def zamba2_reuse(cfg, p32, dev):
+    """ZAMBA_REUSE_REQUESTS requests served in turn through one slot of a
+    captured server, each against a fresh captured server serving it
+    alone: admission zeroes the slot's Mamba2 states."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12))
+               for _ in range(ZAMBA_REUSE_REQUESTS)]
+    reqs = lambda: [Request(rid=i, prompt=p, max_new=8)
+                    for i, p in enumerate(prompts)]
+    kw = dict(slots=1, cache_len=256, device=dev)
+    reused = BatchedServer(cfg, p32, **kw).serve(reqs())
+    alone = {}
+    for r in reqs():
+        alone.update(BatchedServer(cfg, p32, **kw).serve([r]))
+    return {"requests": ZAMBA_REUSE_REQUESTS, "slots": 1, "max_new": 8,
+            "reused_slot_equals_fresh_server": dict(reused) == alone,
+            "status": sorted(set(reused.status.values()))}
+
+
+def phase_zamba2_hybrid(dev):
+    """zamba2-1.2b at full width and depth (38 Mamba2 blocks: 6 rounds of
+    6, each followed by the one weight-shared attention + SwiGLU block,
+    32/32 heads of 64, then 2 trailing blocks; d 2048, SSD 64 heads of 64,
+    state 64, chunk 128; vocab 32,000, untied), random weights from a
+    seed: the prefills of zamba2_prefills; the fp32 handoff of
+    zamba2_handoff; 32 bf16 decode steps at B = 4 from the bf16 prefill,
+    eager and captured (the same tokens and bitwise the same logits, from
+    two copies of the state), then timed as llama's; BatchedServer in fp32
+    eager and captured, and a reused slot against fresh servers;
+    TrainConfig's train steps on plain attention; FedDCL's federated
+    round, ZAMBA_FED_ROUNDS fedavg rounds of 2 silos x 2 local steps.
+    Returns the row."""
+    cfg = ZAMBA
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    # bf16 weights; A_log, D and dt_bias stay fp32, as a bf16 init keeps them
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+    for k in ("A_log", "D", "dt_bias"):
+        for part in ("layers", "tail_layers"):
+            p16[part]["mamba"][k] = p32[part]["mamba"][k]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, (logits, state, nxt) = zamba2_prefills(cfg, p32, p16, dev)
+    handoff = zamba2_handoff(cfg, p32, dev)
+
+    # decode: eager against captured from two copies of the bf16 state
+    tok = logits[:, 0].argmax(-1, keepdim=True)
+    s_e, s_c = (tree_map(torch.clone, state) for _ in range(2))
+    te, le = greedy_run(make_serve_step(cfg, device=dev), p16, s_e, tok,
+                        nxt.clone(), DECODE_STEPS)
+    cap_step = make_captured_serve_step(cfg, device=dev)
+    tc_, lc = greedy_run(cap_step, p16, s_c, tok, nxt.clone(), DECODE_STEPS)
+    same_tokens = bool(torch.equal(te, tc_))
+    bitwise = all(torch.equal(a, b) for a, b in zip(le, lc))
+    finite = all(bool(torch.isfinite(a).all()) for a in le)
+    del s_e, s_c, le, lc
+    serve_step = make_serve_step(cfg, device=dev)
+    pos = nxt + DECODE_STEPS
+    tok = te[-1][:, None]
+
+    def decode_run(steps=DECODE_STEPS):
+        nonlocal tok, pos
+        for _ in range(steps):
+            out, _ = serve_step(p16, state, tok, pos)
+            tok = out[:, 0].argmax(-1, keepdim=True)
+            pos = pos + 1
+        return out
+
+    runs = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode_run()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t1)
+    # a short profiled run: the profiler's post-processing grows with the
+    # ~2,500 kernels a step
+    prof_wall, per_kernel, kernels, _ = profile_device(
+        lambda: decode_run(PROFILE_STEPS))
+    busy = sum(per_kernel.values())
+    graph = captured_decode(cfg, p16, state, tok, pos, dev)
+    del state, logits, p16
+    torch.cuda.empty_cache()
+
+    def requests():
+        rng = np.random.default_rng(1)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   size=rng.integers(4, 12)),
+                        max_new=16) for i in range(8)]
+
+    server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev,
+                           capture=False)
+    t1 = time.perf_counter()
+    outs = server.serve(requests())
+    torch.cuda.synchronize()
+    eager_serve_s = time.perf_counter() - t1
+    total = sum(len(v) for v in outs.values())
+    captured_server = captured_server_runs(cfg, p32, requests, outs, dev,
+                                           cache_len=256)
+    reuse = zamba2_reuse(cfg, p32, dev)
+    del server
+    torch.cuda.empty_cache()
+    decode = {"batch": ZAMBA_B, "steps": DECODE_STEPS, "start_pos": ZAMBA_S,
+              "captured_tokens_equal_eager": same_tokens,
+              "captured_logits_bitwise_eager": bitwise,
+              "logits_finite": finite,
+              "eager_decode_tokens_per_s_spread": spread(
+                  ZAMBA_B * DECODE_STEPS / t for t in runs),
+              "eager_ms_per_step": statistics.median(runs)
+                                   / DECODE_STEPS * 1e3,
+              "eager_profiled_device_busy_share": busy / prof_wall,
+              "eager_device_ms_per_step": busy / PROFILE_STEPS * 1e3,
+              "kernels_per_step": kernels / PROFILE_STEPS,
+              "graph": graph,
+              "server_fp32": {"requests": 8, "slots": 4, "cache_len": 256,
+                              "max_new": 16, "new_tokens": total,
+                              "status": sorted(set(outs.status.values())),
+                              "eager_serve_s": eager_serve_s,
+                              "eager_server_tokens_per_s":
+                                  total / eager_serve_s,
+                              "captured": captured_server,
+                              "slot_reuse": reuse}}
+
+    train = lm_train(cfg, p32, dev, ZAMBA_B, ZAMBA_S)
+    fed = lm_federated(cfg, p32, dev, ZAMBA_B, ZAMBA_S, ZAMBA_FED_ROUNDS)
+    rounds = cfg.num_layers // cfg.hybrid_period
+    row = {"phase": "zamba2_hybrid", "arch": cfg.name,
+           "params": cfg.param_count(),
+           "hybrid": {"mamba2_blocks": cfg.num_layers,
+                      "period": cfg.hybrid_period,
+                      "shared_applications": rounds,
+                      "trailing": cfg.num_layers - rounds * cfg.hybrid_period,
+                      "ssd_heads": cfg.ssm.expand * cfg.d_model
+                                   // cfg.ssm.head_dim,
+                      "state": cfg.ssm.state_dim, "chunk": cfg.ssm.chunk},
+           "init_s": init_s, "prefill": prefill, "handoff_fp32": handoff,
+           "decode": decode, "train": train, "federated": fed}
+    emit(row)
+    bf, fp = prefill["bf16"], prefill["fp32"]
+    check(bf["flash_launches"][fa_kernel.BF16_ROUTE] == rounds
+          and sum(bf["flash_launches"].values()) == rounds,
+          f"zamba2 bf16 prefill launches by route: {bf['flash_launches']}")
+    check(fp["flash_launches"][fa_kernel.F32_ROUTE] == rounds
+          and sum(fp["flash_launches"].values()) == rounds,
+          f"zamba2 fp32 prefill launches by route: {fp['flash_launches']}")
+    check(sum(bf["plain_path_launches"].values()) == 0,
+          "zamba2 plain-path prefill launched a flash kernel")
+    check(bf["ssd_calls"] == cfg.num_layers,
+          f"zamba2 bf16 prefill: {bf['ssd_calls']} SSD scans")
+    check(bf["logits_finite"] and fp["logits_finite"],
+          "zamba2 prefill logits")
+    vs = bf["vs_fp32_plain"]
+    for what in ("logits", "state"):
+        got, plain = vs[f"kernel_path_{what}_rel"], vs[f"plain_path_{what}_rel"]
+        check(got <= BF16_GAP * plain,
+              f"zamba2 bf16 kernel path vs fp32 plain ({what}): {got} > "
+              f"{BF16_GAP} x the bf16 plain path's {plain}")
+    check(fp["kernel_vs_plain_logits_rel"] <= LM_TOL
+          and fp["kernel_vs_plain_state_rel"] <= LM_TOL,
+          f"zamba2 fp32 kernel vs plain: logits "
+          f"{fp['kernel_vs_plain_logits_rel']}, state "
+          f"{fp['kernel_vs_plain_state_rel']}")
+    check(handoff["logits_finite"]
+          and handoff["decode_vs_forward_logits_rel"] <= LM_TOL,
+          f"zamba2 fp32 prefill(S-1) + decode vs forward: {handoff}")
+    check(same_tokens and bitwise and finite,
+          f"zamba2 captured vs eager decode: tokens {same_tokens}, "
+          f"logits bitwise {bitwise}, finite {finite}")
+    check(set(outs.status.values()) == {"done"}
+          and all(len(v) == 16 for v in outs.values()),
+          f"zamba2 server statuses {outs.status}")
+    check(reuse["reused_slot_equals_fresh_server"]
+          and reuse["status"] == ["done"],
+          f"zamba2 reused slot vs fresh servers: {reuse}")
+    check_graph_rows(cfg.name, graph, captured_server)
     return row
 
 
@@ -2669,6 +2981,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     granite_row = phase_granite_moe(dev)
     torch.cuda.empty_cache()
+    zamba_row = phase_zamba2_hybrid(dev)
+    torch.cuda.empty_cache()
     wkv_rows = phase_wkv6_check(dev, peak)
     train_row, rwkv_params = phase_rwkv6_train(dev, wkv_rows[0])
     rwkv_serve_row = phase_rwkv6_serve(dev, rwkv_params)
@@ -2685,27 +2999,33 @@ def main() -> int:
     def per_fit(key):
         return sum(n * r[key] for n, r in zip(MAIN_COUNTS, main_rows))
 
-    # the bf16 flash kernel's main paths: llama3.2-1b's bf16 prefill and
-    # granite-moe-1b's, one launch per layer at the first and second
-    # FLASH_SHAPES rows; the fp32 one's: the gemma2-2b fp32 prefill, half
-    # its layers local and half global, and granite's fp32 prefill (the
-    # second row's shape)
+    # the bf16 flash kernel's main paths: the bf16 prefills of llama3.2-1b
+    # (one launch a layer), granite-moe-1b (one a layer) and zamba2-1.2b
+    # (one a shared application), each at its FLASH_SHAPES row; the fp32
+    # one's: the gemma2-2b fp32 prefill, half its layers local and half
+    # global, and granite's and zamba2's fp32 prefills
     flash = {(r["shape"], r["dtype"]): r for r in flash_rows}
     granite_pf = granite_row["prefill"]
+    zamba_pf = zamba_row["prefill"]
     bf16_paths = [
-        (flash[(FLASH_SHAPES[0][0], "bfloat16")],
+        (flash[("llama3.2-1b prefill", "bfloat16")],
          prefill_row["bf16"]["flash_launches"]),
-        (flash[(FLASH_SHAPES[1][0], "bfloat16")],
-         granite_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE])]
+        (flash[("granite-moe-1b prefill", "bfloat16")],
+         granite_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE]),
+        (flash[("zamba2-1.2b prefill", "bfloat16")],
+         zamba_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE])]
     n_fa = sum(n for _, n in bf16_paths)
 
     def per_bf16(key):
         return sum(n * r[key] for r, n in bf16_paths)
-    f32_main = [flash[(FLASH_SHAPES[i][0], "float32")] for i in (2, 3)]
+    f32_main = [flash[(name, "float32")] for name in
+                ("gemma2-2b local layer", "gemma2-2b global layer")]
     n_gemma = gemma_row["flash_launches"]
     f32_paths = [(r, n_gemma // 2) for r in f32_main] + [
-        (flash[(FLASH_SHAPES[1][0], "float32")],
-         granite_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE])]
+        (flash[("granite-moe-1b prefill", "float32")],
+         granite_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE]),
+        (flash[("zamba2-1.2b prefill", "float32")],
+         zamba_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE])]
     n_f32 = sum(n for _, n in f32_paths)
 
     def per_f32(key):
@@ -2755,7 +3075,9 @@ def main() -> int:
         "library_ms": per_bf16("library_ms"),
         "launches_by_path": {"llama3.2-1b bf16 prefill": bf16_paths[0][1],
                              "granite-moe-1b bf16 prefill":
-                                 bf16_paths[1][1]}}, {
+                                 bf16_paths[1][1],
+                             "zamba2-1.2b bf16 prefill":
+                                 bf16_paths[2][1]}}, {
         "name": "flash_attention_fwd_f32_3xtf32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
@@ -2768,11 +3090,13 @@ def main() -> int:
                                         for r, _ in f32_paths) else "bytes",
         "bound_kind": f32_main[0]["bound_kind"],
         "ffma_bound_ms": per_f32("ffma_bound_ms"),
-        # gemma2's: flex_attention (SDPA has no softcap); granite's: SDPA
+        # gemma2's: flex_attention (SDPA has no softcap); the others': SDPA
         "library_ms": per_f32("library_ms"),
         "launches_by_path": {"gemma2-2b fp32 prefill": n_gemma,
                              "granite-moe-1b fp32 prefill":
-                                 f32_paths[-1][1]}}, {
+                                 f32_paths[2][1],
+                             "zamba2-1.2b fp32 prefill":
+                                 f32_paths[3][1]}}, {
         "name": "wkv6_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:70",

@@ -7,20 +7,24 @@ sequences release their slot to the next queued request mid-flight; the
 decode step always runs the full (padded) batch. Slot positions and
 current tokens live on the host (NumPy) and go to the device once per
 step; the decode state (dense and moe: the KV cache; ssm: rwkv6's
-recurrent and token-shift states) lives on the device and is updated in
-place. A moe model with the gspmd dispatch takes its expert capacity from
+recurrent and token-shift states; hybrid: the Mamba2 states and the shared
+block's KV cache) lives on the device and is updated in place. A moe model with the gspmd dispatch takes its expert capacity from
 each step's batch, as the reference's does, so a request's tokens depend
 on what the other slots hold. On CUDA
 every decode runs as a captured graph (``make_captured_serve_step``): one
 for the full batch and one per slot for its B=1 prompt steps.
 
-Unlike the reference, admission zeroes an ssm slot's state: the
+Unlike the reference, admission zeroes a slot's recurrent state (ssm:
+all of it; hybrid: the Mamba2 states, not the shared KV cache): the
 reference's ``_prefill_slot`` decodes a new prompt from whatever state the
-slot's last request left, which the dense family's position mask hides and
-the ssm family's recurrence does not.
+slot's last request left, which the position mask hides from attention
+and a recurrence does not. A KV cache is left as it is: zeroing its
+``pos`` would turn the -1 "empty" marks into position 0 and show every
+stale key.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b [--device cpu]
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m [--device cpu]
+    python -m repro_torch.launch.serve --arch zamba2-1.2b [--device cpu]
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import (make_captured_serve_step,
                                      make_serve_step)
 from repro_torch.models import backbone as bb
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -108,10 +112,9 @@ class BatchedServer:
         # live slots' state is untouched by construction
         toks = req.prompt
         self.pos[slot] = len(toks)
-        if self.cfg.family == "ssm":
-            # a fresh recurrence: the slot's last request left its state
-            for a in self.state.values():
-                a[:, slot].zero_()
+        # a fresh recurrence: the slot's last request left its state
+        for a in tree_leaves(self._recurrent_state()):
+            a[:, slot].zero_()
         if len(toks) == 0:
             # empty prompt: nothing to prefill (and no logits to sample
             # from) — seed the slot with token 0 at pos 0 and let the next
@@ -126,6 +129,16 @@ class BatchedServer:
         nxt = self._sample(logits[0, 0], req)
         req.out.append(nxt)
         self.cur_tok[slot, 0] = nxt
+
+    def _recurrent_state(self):
+        """The state a new request must not inherit: every recurrent leaf
+        (rwkv6's, the Mamba2 blocks'), no KV cache."""
+        if self.cfg.family == "ssm":
+            return self.state
+        if self.cfg.family == "hybrid":
+            return {k: v for k, v in self.state.items()
+                    if k != "shared_cache"}
+        return {}
 
     def _sample(self, logits: torch.Tensor, req: Request) -> int:
         if self.temperature <= 0:

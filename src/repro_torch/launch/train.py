@@ -6,16 +6,19 @@ written by ``checkpoint.store``. Runs on CUDA unless ``device="cpu"`` is
 asked for.
 
 Training runs a kernel only where it has a gradient: the WKV6 kernels do
-(the ssm family), the flash-attention kernel does not, so a dense or moe
-model trains on the plain attention path, as the reference's ``train``
-does. A moe model's loss adds its load-balance term (and, with an MTP
-head, deepseek's MTP loss); both come back as metrics beside the loss.
+(the ssm family), the flash-attention kernel does not, so a dense, moe or
+hybrid model trains on the plain attention path, as the reference's
+``train`` does (Mamba2's SSD scan has no kernel in either package). A
+moe model's loss adds its load-balance term (and, with an MTP head,
+deepseek's MTP loss); both come back as metrics beside the loss.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
       --reduced --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --reduced --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --reduced --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
       --reduced --steps 11 --silos 2 --local-steps 2 \\
       --rounds-per-dispatch 2 --checkpoint ck.npz --device cpu
@@ -63,7 +66,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
     print(f"arch={cfg.name} params={n_params/1e6:.2f}M silos={silos} "
           f"H={local_steps} batch={batch}x{seq} device={dev}")
     # only a kernel with a gradient may run here: WKV6 has one, flash
-    # attention has none (so dense and moe train on plain attention)
+    # attention has none (so dense, moe and hybrid train on plain attention)
     kw = dict(use_kernels=cfg.family == "ssm", device=dev)
 
     history = []

@@ -1,4 +1,4 @@
-"""Backbone LM (counterpart of ``repro.models.backbone``), three families:
+"""Backbone LM (counterpart of ``repro.models.backbone``), four families:
 
   dense : a uniform [attn + SwiGLU] stack (GQA, sliding window, softcap,
           qk-norm per config), with forward, loss, prefill and cached
@@ -10,7 +10,14 @@
           head; the same forward, loss, prefill and decode as dense;
   ssm   : rwkv6's [time-mix + channel-mix] stack, with forward, loss,
           prefill (which also returns the recurrent state) and
-          single-token decode from that state.
+          single-token decode from that state;
+  hybrid: zamba2's rounds of `hybrid_period` Mamba2 blocks, each round
+          followed by ONE weight-shared attention + SwiGLU block
+          (``shared_block``, unstacked), then the trailing Mamba2 blocks
+          (``tail_layers``); prefill fills each round's Mamba2 states
+          (``mamba``: conv window and SSM state), one KV-cache layer per
+          shared application (``shared_cache``) and the trailing blocks'
+          states (``mamba_tail``), from which decode continues.
 
 Parameters are stacked on a leading layer axis L, as in the reference, so
 its weights carry over as they are (``repro_torch.weights``); layers run in
@@ -18,9 +25,12 @@ a Python loop, so gemma2's alternating local/global flag is a concrete bool
 per layer. With ``remat`` each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
 body): its activations are recomputed in the backward pass, a MoE layer's
-routing included (the same deterministic top-k and stable sort). The
-other families (hybrid, MLA attention, modality prefixes) are not ported
-yet and raise NotImplementedError naming ROADMAP.md.
+routing included (the same deterministic top-k and stable sort); a
+hybrid model checkpoints one round at a time (its Mamba2 blocks and the
+shared block, the blocks inside not checkpointed again) and each trailing
+block alone, as the reference does. MLA attention and the modality
+prefixes are not ported yet and raise NotImplementedError naming
+ROADMAP.md.
 
 ``use_kernels`` (the reference's ``use_pallas``) sends the attention of
 forward and prefill through the flash-attention kernel, and rwkv6's
@@ -28,10 +38,12 @@ recurrence in forward and loss through the WKV6 kernel; False runs the
 plain paths (``sdpa``, ``wkv6_chunked``). rwkv6's prefill needs the final
 recurrent state, which the WKV6 kernel does not return (ROADMAP.md, Queue 2
 item 2): it takes the chunked plain form whatever ``use_kernels`` says, as
-the reference's prefill does. Decode runs no kernel, as in the reference.
-Decode writes its state in place (the KV caches; rwkv6's ``wkv``,
-``x_prev_att`` and ``x_prev_ffn``), so a caller's view of one batch row,
-as ``BatchedServer`` keeps per slot, sees every update.
+the reference's prefill does. Mamba2 has no kernel in the reference: its
+SSD scan is torch ops on either path. Decode runs no kernel, as in the
+reference. Decode writes its state in place (the KV caches; rwkv6's
+``wkv``, ``x_prev_att`` and ``x_prev_ffn``; Mamba2's ``conv`` and
+``ssm``), so a caller's view of one batch row, as ``BatchedServer`` keeps
+per slot, sees every update.
 """
 from __future__ import annotations
 
@@ -51,18 +63,19 @@ Params = Dict[str, Any]
 
 
 def _check_ported(cfg: ModelConfig, *, shapes_only: bool = False) -> None:
-    """Raise for what the port does not run yet: the hybrid and
-    modality-prefix families and MLA attention. `shapes_only` (the
-    parameter count) lets MLA through: its init is ported."""
-    if cfg.family not in ("dense", "ssm", "moe") or cfg.prefix_frontend:
+    """Raise for what the port does not run yet: the modality-prefix
+    families and MLA attention. `shapes_only` (the parameter count) lets
+    MLA through: its init is ported."""
+    if (cfg.family not in ("dense", "ssm", "moe", "hybrid")
+            or cfg.prefix_frontend):
         what = f"family {cfg.family!r}"
     elif cfg.mla is not None and not shapes_only:
         what = "MLA attention"
     else:
         return
     raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ported: the dense, moe and "
-        f"ssm families, without MLA). See ROADMAP.md, Queue 1")
+        f"{cfg.name}: {what} is not ported yet (ported: the dense, moe, "
+        f"ssm and hybrid families, without MLA). See ROADMAP.md, Queue 1")
 
 
 # ===========================================================================
@@ -93,6 +106,27 @@ def _init_rwkv_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
             "cm": L.init_rwkv6_channelmix(gen, cfg, dtype, device, lead)}
 
 
+def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                      lead=()) -> Params:
+    return {"ln": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+            "mamba": L.init_mamba2(gen, cfg, dtype, device, lead)}
+
+
+def _hybrid_split(cfg: ModelConfig):
+    """(rounds of `hybrid_period` Mamba2 blocks, trailing blocks)."""
+    rounds = cfg.num_layers // cfg.hybrid_period
+    return rounds, cfg.num_layers - rounds * cfg.hybrid_period
+
+
+def _hybrid_rounds(cfg: ModelConfig):
+    """(round r, the slice of ``layers`` holding its Mamba2 blocks, the
+    shared block's local flag) for every round."""
+    rounds, _ = _hybrid_split(cfg)
+    per = cfg.hybrid_period
+    return [(r, slice(r * per, (r + 1) * per), flag)
+            for r, flag in enumerate(_local_flags(cfg, rounds))]
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 param_dtype=torch.float32, *,
                 device: DeviceLike = None) -> Params:
@@ -119,6 +153,17 @@ def _init_tree(cfg: ModelConfig, generator: Optional[torch.Generator],
     if cfg.family == "ssm":
         params["layers"] = _init_rwkv_block(generator, cfg, param_dtype, dev,
                                             lead=(cfg.num_layers,))
+        return params
+    if cfg.family == "hybrid":
+        rounds, trailing = _hybrid_split(cfg)
+        params["layers"] = _init_mamba_block(
+            generator, cfg, param_dtype, dev,
+            lead=(rounds * cfg.hybrid_period,))
+        if trailing:
+            params["tail_layers"] = _init_mamba_block(
+                generator, cfg, param_dtype, dev, lead=(trailing,))
+        params["shared_block"] = _init_dense_block(generator, cfg,
+                                                   param_dtype, dev)
         return params
     if cfg.family != "moe":
         params["layers"] = _init_dense_block(generator, cfg, param_dtype, dev,
@@ -216,6 +261,11 @@ def _rwkv_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x + L.rwkv6_channelmix(lp["cm"], h, h_prev), None
 
 
+def _mamba_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    h = L.apply_rmsnorm(lp["ln"], x, cfg.norm_eps)
+    return x + L.mamba2_forward(lp["mamba"], h, cfg)
+
+
 def _run_stack(body, x: torch.Tensor, stacked: Params, flags: List[bool],
                remat: bool):
     """`body(x, layer_params, flag) -> (x, aux or None)` over the stacked
@@ -247,11 +297,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x, positions, loss_mask = embed_inputs(params, tokens, cfg)
     x = x.to(compute_dtype)
     remat = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x, aux = _run_stack(
             lambda h, lp, flag: _rwkv_block_apply(lp, h, cfg,
                                                   use_kernels=use_kernels),
             x, params["layers"], [False] * cfg.num_layers, remat)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward(params, x, cfg, positions=positions,
+                            use_kernels=use_kernels, remat=remat)
     else:
         def body(moe_layer):
             return lambda h, lp, flag: _dense_block_apply(
@@ -268,6 +322,35 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     logits = _lm_logits(params, hidden, cfg) if return_logits else None
     return logits, hidden, {"moe_aux": aux, "loss_mask": loss_mask}
+
+
+def _hybrid_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions, use_kernels: bool, remat: bool):
+    """The hybrid stack: each round's Mamba2 blocks, then the shared block
+    (one ``checkpoint`` a round under `remat`), then the trailing blocks
+    (one each)."""
+    blocks = _layers(params["layers"])
+
+    def round_body(h, round_blocks, flag):
+        for lp in round_blocks:
+            h = _mamba_block_apply(lp, h, cfg)
+        h, _ = _dense_block_apply(params["shared_block"], h, cfg,
+                                  positions=positions, is_local=flag,
+                                  use_kernels=use_kernels)
+        return h
+
+    for _, sl, flag in _hybrid_rounds(cfg):
+        if remat:
+            x = checkpoint(round_body, x, blocks[sl], flag,
+                           use_reentrant=False)
+        else:
+            x = round_body(x, blocks[sl], flag)
+    if "tail_layers" in params:
+        x, _ = _run_stack(
+            lambda h, lp, flag: (_mamba_block_apply(lp, h, cfg), None),
+            x, params["tail_layers"], [False] * _n_stacked(
+                params["tail_layers"]), remat)
+    return x
 
 
 def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig):
@@ -411,18 +494,19 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x, positions, _ = embed_inputs(params, tokens, cfg)
     x = x.to(compute_dtype)
     B, T = positions.shape
-    if cfg.family == "ssm":
-        x, state = _prefill_rwkv(params["layers"], x, cfg)
-        return (_last_logits(params, x, cfg), state,
-                torch.full((B,), T, dtype=torch.int32, device=x.device))
     kw = dict(positions=positions, use_kernels=use_kernels,
               cache_len=cache_len, cache_dtype=cache_dtype)
     state: Params = {}
-    if cfg.first_k_dense:
-        x, state["dense_cache"] = _prefill_attn_stack(
-            params["dense_layers"], x, cfg, moe_layer=False, **kw)
-    x, state["cache"] = _prefill_attn_stack(
-        params["layers"], x, cfg, moe_layer=cfg.family == "moe", **kw)
+    if cfg.family == "ssm":
+        x, state = _prefill_rwkv(params["layers"], x, cfg)
+    elif cfg.family == "hybrid":
+        x, state = _prefill_hybrid(params, x, cfg, **kw)
+    else:
+        if cfg.first_k_dense:
+            x, state["dense_cache"] = _prefill_attn_stack(
+                params["dense_layers"], x, cfg, moe_layer=False, **kw)
+        x, state["cache"] = _prefill_attn_stack(
+            params["layers"], x, cfg, moe_layer=cfg.family == "moe", **kw)
     next_pos = torch.full((B,), T, dtype=torch.int32, device=x.device)
     return _last_logits(params, x, cfg), state, next_pos
 
@@ -470,6 +554,48 @@ def _prefill_rwkv(stacked: Params, x: torch.Tensor, cfg: ModelConfig):
                "x_prev_ffn": torch.stack(xpf)}
 
 
+def _prefill_mamba(stacked: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Mamba2 blocks over the prompt -> (x, their decode state: the conv
+    windows and SSM states, stacked)."""
+    conv, ssm = [], []
+    for lp in _layers(stacked):
+        hn = L.apply_rmsnorm(lp["ln"], x, cfg.norm_eps)
+        out, (cw, st) = L.mamba2_forward(lp["mamba"], hn, cfg,
+                                         return_state=True)
+        x = x + out
+        conv.append(cw)
+        ssm.append(st)
+    return x, {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
+
+
+def _prefill_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions, use_kernels: bool, cache_len: int,
+                    cache_dtype):
+    """The hybrid stack over the prompt. Each round's Mamba2 states go to
+    ``mamba``; each shared application fills its own layer of
+    ``shared_cache`` as it goes (the weights are shared, the keys are not);
+    the trailing blocks' states go to ``mamba_tail``."""
+    rounds = _hybrid_rounds(cfg)
+    pos1d = positions[0]
+    cache = L.init_kv_cache(cfg, x.shape[0], cache_len, len(rounds),
+                            cache_dtype, x.device)
+    _entries_to_cache(cache, pos1d)
+    rstates = []
+    for r, sl, flag in rounds:
+        x, st = _prefill_mamba(tree_map(lambda a: a[sl], params["layers"]),
+                               x, cfg)
+        rstates.append(st)
+        x, _, kv = _dense_block_apply(
+            params["shared_block"], x, cfg, positions=positions,
+            is_local=flag, use_kernels=use_kernels, return_kv=True)
+        _fill_cache(cache, r, kv, pos1d)
+    state = {"mamba": tree_map(lambda *a: torch.cat(a), *rstates),
+             "shared_cache": cache}
+    if "tail_layers" in params:
+        x, state["mamba_tail"] = _prefill_mamba(params["tail_layers"], x, cfg)
+    return x, state
+
+
 # ===========================================================================
 # decode (single token, cached)
 # ===========================================================================
@@ -480,10 +606,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     """State tree for serve_step: the KV cache (dense and moe, which also
     has a ``dense_cache`` for its `first_k_dense` leading layers;
     cache_len should be min(seq_len, window) for pure sliding-window
-    configs), or rwkv6's fp32 recurrent state and token-shift states (ssm;
-    no cache_len or dtype)."""
+    configs), rwkv6's fp32 recurrent state and token-shift states (ssm;
+    no cache_len or dtype), or the hybrid's fp32 Mamba2 states (``mamba``,
+    ``mamba_tail`` where there are trailing blocks) and the shared block's
+    KV cache, one layer per shared application (``shared_cache``)."""
     _check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        rounds, trailing = _hybrid_split(cfg)
+        state = {"mamba": L.init_mamba2_cache(
+            cfg, batch, rounds * cfg.hybrid_period, dev)}
+        if trailing:
+            state["mamba_tail"] = L.init_mamba2_cache(cfg, batch, trailing,
+                                                      dev)
+        state["shared_cache"] = L.init_kv_cache(cfg, batch, cache_len, rounds,
+                                                dtype, dev)
+        return state
     if cfg.family == "ssm":
         zeros = lambda *shape: torch.zeros((cfg.num_layers, batch) + shape,
                                            dtype=torch.float32, device=dev)
@@ -515,6 +653,8 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     x = x.to(compute_dtype)
     if cfg.family == "ssm":
         x = _decode_rwkv_stack(params["layers"], state, x, cfg)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(params, state, x, cur_pos, cfg)
     else:
         if cfg.first_k_dense:
             x = _decode_attn_stack(params["dense_layers"],
@@ -535,18 +675,59 @@ def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
     n = _n_stacked(stacked)
     for i, (lp, flag) in enumerate(zip(_layers(stacked),
                                        _local_flags(cfg, n))):
-        hn = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
-        attn = L.decode_attention(
-            lp["attn"], hn, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],
-            cache_pos=cache["pos"][i], cur_pos=cur_pos, is_local=flag)
-        if cfg.post_block_norm:
-            attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
-        x = x + attn
-        hn = L.apply_rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
-        out, _ = _ffn(lp, hn, cfg, moe_layer)
-        if cfg.post_block_norm:
-            out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
+        x = _decode_attn_block(lp, cache, i, x, cur_pos, cfg, is_local=flag,
+                               moe_layer=moe_layer)
+    return x
+
+
+def _decode_attn_block(lp: Params, cache: Params, i: int, x: torch.Tensor,
+                       cur_pos: torch.Tensor, cfg: ModelConfig, *,
+                       is_local: bool, moe_layer: bool = False):
+    """One attention block on one token, against layer `i` of `cache`,
+    which it writes in place."""
+    hn = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
+    attn = L.decode_attention(
+        lp["attn"], hn, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],
+        cache_pos=cache["pos"][i], cur_pos=cur_pos, is_local=is_local)
+    if cfg.post_block_norm:
+        attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
+    x = x + attn
+    hn = L.apply_rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
+    out, _ = _ffn(lp, hn, cfg, moe_layer)
+    if cfg.post_block_norm:
+        out = L.apply_rmsnorm(lp["ln_post_mlp"], out, cfg.norm_eps)
+    return x + out
+
+
+def _decode_mamba_stack(stacked: Params, mstate: Params, x: torch.Tensor,
+                        cfg: ModelConfig):
+    """Mamba2 blocks on one token, writing each block's conv window and
+    SSM state (layer i of `mstate`) in place."""
+    for i, lp in enumerate(_layers(stacked)):
+        hn = L.apply_rmsnorm(lp["ln"], x, cfg.norm_eps)
+        out, conv, ssm = L.mamba2_decode_step(
+            lp["mamba"], hn, cfg, conv_state=mstate["conv"][i],
+            ssm_state=mstate["ssm"][i])
+        mstate["conv"][i].copy_(conv)
+        mstate["ssm"][i].copy_(ssm)
         x = x + out
+    return x
+
+
+def _decode_hybrid(params: Params, state: Params, x: torch.Tensor,
+                   cur_pos: torch.Tensor, cfg: ModelConfig):
+    """The hybrid stack on one token: each round's Mamba2 blocks, then the
+    shared block against its application's layer of ``shared_cache``, then
+    the trailing blocks; every state written in place."""
+    for r, sl, flag in _hybrid_rounds(cfg):
+        x = _decode_mamba_stack(
+            tree_map(lambda a: a[sl], params["layers"]),
+            tree_map(lambda a: a[sl], state["mamba"]), x, cfg)
+        x = _decode_attn_block(params["shared_block"], state["shared_cache"],
+                               r, x, cur_pos, cfg, is_local=flag)
+    if "tail_layers" in params:
+        x = _decode_mamba_stack(params["tail_layers"], state["mamba_tail"],
+                                x, cfg)
     return x
 
 

@@ -2,9 +2,11 @@
 sliding window / softcap / qk-norm) for prefill and for cached decode, the
 SwiGLU MLP, the mixture of experts (both routers, shared experts, the
 dense and the capacity-based gspmd dispatch, the load-balance loss), MLA's
-init (its attention is not ported), and RWKV6's time mix and channel mix
-(full-sequence and single-token decode) with the chunk-level linear
-recurrence they need (counterpart of ``repro.models.layers``).
+init (its attention is not ported), RWKV6's time mix and channel mix
+(full-sequence and single-token decode), the chunk-level linear
+recurrence they and Mamba2 need, and Mamba2 (the causal conv, the chunked
+SSD scan, full-sequence and single-token decode) (counterpart of
+``repro.models.layers``).
 
 Functional style, as the reference: ``init_*`` builds a dict of tensors,
 ``apply_*`` consumes it, in the reference's layouts (``wq`` (d, H, hd),
@@ -644,20 +646,28 @@ def rwkv6_decode_step(p_tm: Params, p_cm: Params, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 PSCAN_MIN_BLOCK = 16     # fewest steps a block of the closed form takes
+# log a where a = 0: far under any fp32 or fp64 exponent, so exp of a sum
+# that crosses it is 0, yet finite, so two such sums still subtract
+LOG_ZERO = -1e4
 
 
 def linear_recurrence_pscan(a: torch.Tensor, b: torch.Tensor,
                             extra_dims: int = 1) -> torch.Tensor:
     """Inclusive prefix states of s_i = a_i ⊙ s_{i-1} + b_i along axis 1.
 
-    a: (G, n, K) in (0, 1]; b: (G, n, K, *extra). Returns inclusive states
+    a: (G, n, K) in [0, 1]; b: (G, n, K, *extra). Returns inclusive states
     like b. The reference runs a log-depth associative scan, which torch
     lacks; this is a blocked closed form. Within blocks of L steps,
     s_i = Σ_{j<=i} exp(C_i - C_j) b_j with C = cumsum(log a) from the
     block's start, one batched product; across blocks a loop carries the
     block-end state, s = exp(C) ⊙ s_prev + local. Every exponent is <= 0,
     so no term overflows; C is summed in float64, so the differences keep
-    fp32 precision however strong the decay. L = clamp(X, 16, n) for X the
+    fp32 precision however strong the decay. An a that is exactly 0 (a
+    decay that underflowed, as Mamba2's chunk decays do at full width)
+    takes log a = LOG_ZERO: every weight across it is exp(<= -1e4) = 0,
+    so the state restarts from b there, as the loop's does, and sums of
+    ~1e4 keep ~1e-12 of absolute precision in float64; its gradient
+    reaches a = 0 as 0, never as 0/0. L = clamp(X, 16, n) for X the
     product of the extra dims: the (G, n, L, K) weights hold no more
     elements than the (G, n, K, X) states returned (for X >= 16), so memory
     is linear in n, as the reference's scan is.
@@ -671,7 +681,10 @@ def linear_recurrence_pscan(a: torch.Tensor, b: torch.Tensor,
     if pad:             # a = 1, b = 0 past n: the states just carry on
         a = F.pad(a, (0, 0, 0, pad), value=1.0)
         bf = F.pad(bf, (0, 0, 0, 0, 0, pad))
-    C = torch.cumsum(torch.log(a).double().reshape(G, nb, L, K), dim=2)
+    live = a > 0
+    log_a = torch.where(live, torch.log(torch.where(live, a, 1.0)).double(),
+                        LOG_ZERO)
+    C = torch.cumsum(log_a.reshape(G, nb, L, K), dim=2)
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                    device=a.device))[None, None, :, :, None]
     weight = torch.exp(torch.where(
@@ -694,3 +707,184 @@ def _prev_states(a: torch.Tensor, b: torch.Tensor, extra_dims: int = 1):
     incl = linear_recurrence_pscan(a, b, extra_dims)
     prev = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], dim=1)
     return prev, incl[:, -1]
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD)
+# --------------------------------------------------------------------------
+
+def _mamba2_dims(cfg: ModelConfig):
+    """(inner width, SSD heads H, state N, head width P, conv channels)."""
+    s = cfg.ssm
+    inner = s.expand * cfg.d_model
+    return (inner, inner // s.head_dim, s.state_dim, s.head_dim,
+            inner + 2 * s.state_dim)
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                lead: Shape = ()) -> Params:
+    d = cfg.d_model
+    inner, H, N, _, conv_ch = _mamba2_dims(cfg)
+    fp32 = dict(dtype=torch.float32, device=device)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, **fp32))
+    return {
+        "w_in": _dense_init(gen, lead + (d, 2 * inner + 2 * N + H), d, dtype,
+                            device),
+        "conv_w": (_draw(lead + (cfg.ssm.conv_dim, conv_ch), device,
+                         lambda t: t.normal_(0.0, 1.0, generator=gen))
+                   * 0.2).to(dtype),
+        "conv_b": torch.zeros(lead + (conv_ch,), dtype=dtype, device=device),
+        # A_log, D and dt_bias stay fp32 whatever the param dtype
+        "A_log": a_log.expand(lead + (H,)).contiguous(),
+        "D": torch.ones(lead + (H,), **fp32),
+        "dt_bias": _draw(lead + (H,), device,
+                         lambda t: t.uniform_(0.0, 1.0, generator=gen))
+                   * 2.0 - 4.0,
+        "gate_norm": init_rmsnorm(inner, dtype, device, lead),
+        "w_out": _dense_init(gen, lead + (inner, d), inner, dtype, device),
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C); w: (K, C). Accumulates in
+    x's dtype, tap by tap in the reference's order."""
+    K, S = w.shape[0], x.shape[1]
+    xpad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(K):                                   # K is tiny (4)
+        out = out + xpad[:, i:i + S] * w[i]
+    return out + b
+
+
+def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   return_state: bool = False):
+    """Full-sequence Mamba2 (chunked SSD). x: (B, S, d). With return_state,
+    also returns (conv_window (B, K-1, C) fp32, ssm_state (B, H, N, P))."""
+    B, S, _ = x.shape
+    inner, H, N, P, _ = _mamba2_dims(cfg)
+    proj = x @ p["w_in"].to(x.dtype)
+    z, xin, Bc, Cc, dt = torch.split(proj, [inner, inner, N, N, H], dim=-1)
+    conv_raw = torch.cat([xin, Bc, Cc], dim=-1)
+    conv_in = F.silu(_causal_conv1d(conv_raw, p["conv_w"].to(x.dtype),
+                                    p["conv_b"].to(x.dtype)))
+    xin, Bc, Cc = torch.split(conv_in, [inner, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B, S, H)
+    A = -torch.exp(p["A_log"])                                   # (H,)
+    xh = xin.reshape(B, S, H, P)
+    y, ssm_state = ssd_chunked(xh, dt, A, Bc, Cc, chunk=cfg.ssm.chunk,
+                               return_state=True)
+    y = y + p["D"][None, None, :, None] * xh.float()
+    y = y.reshape(B, S, inner).to(x.dtype)
+    y = apply_rmsnorm(p["gate_norm"], y, cfg.norm_eps) * F.silu(z)
+    out = y @ p["w_out"].to(x.dtype)
+    if return_state:
+        K = cfg.ssm.conv_dim
+        conv_window = F.pad(conv_raw, (0, 0, K - 1, 0))[:, -(K - 1):].float()
+        return out, (conv_window, ssm_state)
+    return out
+
+
+def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bc: torch.Tensor, Cc: torch.Tensor, *, chunk: int,
+                return_state: bool = False):
+    """Chunked state-space-dual scan (Mamba2).
+
+    xh: (B, S, H, P); dt: (B, S, H) fp32; A: (H,) fp32; Bc / Cc: (B, S, N).
+    Returns fp32 (B, S, H, P) (and the final state (B, H, N, P) with
+    return_state). Scalar-per-head decay gives (L, L) pairwise matrices a
+    chunk. The reference's three-operand einsums are written as named
+    steps, each a batched matrix product over two operands, so no order
+    an einsum planner might pick makes a (B, nc, L, N, H, P) tensor: the
+    largest intermediate is (B, nc, H, L, L) fp32.
+    """
+    B, S0, H, P = xh.shape
+    N = Bc.shape[-1]
+    L = min(chunk, S0)
+    pad = (-S0) % L
+    if pad:
+        # dt = 0 -> unit decay and no input at the padded steps, so the
+        # final state is the one the unpadded steps left
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bc = F.pad(Bc, (0, 0, 0, pad))
+        Cc = F.pad(Cc, (0, 0, 0, pad))
+    S = S0 + pad
+    nc = S // L
+    xb = xh.reshape(B, nc, L, H, P).float()
+    dtb = dt.reshape(B, nc, L, H)
+    Bb = Bc.reshape(B, nc, L, N).float()
+    Cb = Cc.reshape(B, nc, L, N).float()
+
+    cum = torch.cumsum(dtb * A, dim=2)             # (B, nc, L, H) inclusive
+    cum_h = cum.transpose(2, 3)                    # (B, nc, H, L)
+    diff = cum_h[..., :, None] - cum_h[..., None, :]      # (B, nc, H, Lq, Lk)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=xh.device))
+    # mask in log space BEFORE exp: the upper triangle holds positive
+    # log-decay sums that would overflow fp32 (and give inf·0 gradients)
+    seg = torch.exp(torch.where(causal, diff, NEG_INF))
+
+    # intra-chunk: y[t] = Σ_{i<=t} C_t·B_i seg[t, i] dt_i x_i
+    cb = Cb @ Bb.transpose(-1, -2)                 # (B, nc, Lq, Lk)
+    scores = cb[:, :, None] * seg                  # (B, nc, H, Lq, Lk)
+    xdt = (xb * dtb[..., None]).transpose(2, 3)    # (B, nc, H, L, P)
+    y_intra = (scores @ xdt).transpose(2, 3)       # (B, nc, L, H, P)
+
+    # chunk-final states: S_c = Σ_i exp(cum_L - cum_i) dt_i B_i x_iᵀ
+    w_end = torch.exp(cum[:, :, -1:] - cum) * dtb  # (B, nc, L, H)
+    xw = (xb * w_end[..., None]).reshape(B, nc, L, H * P)
+    state_c = (Bb.transpose(-1, -2) @ xw).reshape(B, nc, N, H, P)
+    state_c = state_c.permute(0, 1, 3, 2, 4)       # (B, nc, H, N, P)
+
+    # the recurrence over chunks, then their outputs from the entering
+    # state: y[t] += C_t · (exp(cum_t) * prev_state)
+    chunk_decay = torch.exp(cum[:, :, -1])         # (B, nc, H)
+    prev, final_state = _prev_states(chunk_decay, state_c, extra_dims=2)
+    prev_n = prev.permute(0, 1, 3, 2, 4).reshape(B, nc, N, H * P)
+    y_inter = (Cb @ prev_n).reshape(B, nc, L, H, P) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, H, P)[:, :S0]
+    if return_state:
+        return y, final_state
+    return y
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, num_layers: int,
+                      device) -> Params:
+    _, H, N, P, conv_ch = _mamba2_dims(cfg)
+    zeros = lambda *shape: torch.zeros((num_layers, batch) + shape,
+                                       dtype=torch.float32, device=device)
+    return {"conv": zeros(cfg.ssm.conv_dim - 1, conv_ch),
+            "ssm": zeros(H, N, P)}
+
+
+def mamba2_decode_step(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """Single-token Mamba2 step. x: (B, 1, d); conv_state: (B, K-1, C) fp32;
+    ssm_state: (B, H, N, P) fp32. Returns (out (B, 1, d), new conv window,
+    new ssm state), the new window a fresh tensor (never a view of
+    `conv_state`, so a caller may copy it back in place). Nothing is
+    written in place."""
+    B = x.shape[0]
+    inner, H, N, P, _ = _mamba2_dims(cfg)
+    proj = (x @ p["w_in"].to(x.dtype))[:, 0]
+    z, xin, Bc, Cc, dt = torch.split(proj, [inner, inner, N, N, H], dim=-1)
+    conv_in = torch.cat([xin, Bc, Cc], dim=-1)                   # (B, C)
+    window = torch.cat([conv_state, conv_in[:, None].float()], dim=1)
+    conv_out = (torch.sum(window * p["conv_w"].float(), dim=1)
+                + p["conv_b"].float())
+    conv_out = F.silu(conv_out).to(x.dtype)
+    xin, Bc, Cc = torch.split(conv_out, [inner, N, N], dim=-1)
+    dtf = F.softplus(dt.float() + p["dt_bias"])                  # (B, H)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dtf * A[None, :])                          # (B, H)
+    xhead = xin.reshape(B, H, P).float()
+    dBx = (dtf[:, :, None, None] * Bc.float()[:, None, :, None]
+           * xhead[:, :, None, :])                               # (B,H,N,P)
+    new_ssm = ssm_state * decay[..., None, None] + dBx
+    y = (Cc.float()[:, None, None, :] @ new_ssm)[:, :, 0]        # (B, H, P)
+    y = y + p["D"][None, :, None] * xhead
+    y = y.reshape(B, inner).to(x.dtype)
+    y = apply_rmsnorm(p["gate_norm"], y, cfg.norm_eps) * F.silu(z)
+    out = y @ p["w_out"].to(x.dtype)
+    return out[:, None], window[:, 1:], new_ssm

@@ -2,7 +2,9 @@
 
 Both packages keep the same layouts, so no transposes are needed: the MLP's
 ``{"layers": [{"w": (in, out), "b": (out,)}]}`` and the LM's stacked tree
-(``embed`` (V, d), ``layers.attn.wq`` (L, d, H, hd), ...). The JAX side
+(``embed`` (V, d), ``layers.attn.wq`` (L, d, H, hd), ...; the hybrid's
+``layers.mamba.w_in`` (L, d, 2·inner + 2N + H), ``conv_w`` (L, K, C) and
+its unstacked ``shared_block``). The JAX side
 hands over ``jax.tree.map(np.asarray, params)`` and gets back the same tree
 of NumPy arrays from ``*_params_to_numpy``.
 """

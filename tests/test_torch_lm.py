@@ -226,13 +226,15 @@ def test_param_count_equals_reference_for_dense():
 
 
 def test_unported_families_raise():
-    """hybrid, MLA and modality-prefix configs raise at init and on the
-    serving path; dense, ssm (rwkv6, whose prefill and decode are ported)
-    and moe without MLA (granite-moe) do not."""
+    """MLA (deepseek, moe) and modality-prefix configs (musicgen, audio;
+    chameleon, vlm) raise at init and on the serving path; dense, ssm
+    (rwkv6, whose prefill and decode are ported), moe without MLA
+    (granite-moe) and hybrid (zamba2) do not."""
     archs = tconfigs.ARCHS.values()
-    others = [c for c in archs if c.family not in ("dense", "ssm", "moe")
+    others = [c for c in archs
+              if c.family not in ("dense", "ssm", "moe", "hybrid")
               or c.mla is not None or c.prefix_frontend]
-    assert {c.family for c in others} >= {"moe", "hybrid"}
+    assert {c.family for c in others} == {"moe", "audio", "vlm"}
     assert any(c.mla is not None for c in others)
     assert any(c.prefix_frontend for c in others)
     for cfg in others:
@@ -241,7 +243,7 @@ def test_unported_families_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbb.init_decode_state(cfg, 1, 8, device="cpu")
     ported = [c for c in archs if c not in others]
-    assert {c.family for c in ported} == {"dense", "ssm", "moe"}
+    assert {c.family for c in ported} == {"dense", "ssm", "moe", "hybrid"}
     for cfg in ported:
         state = tbb.init_decode_state(cfg, 1, 8, device="meta")
         assert state

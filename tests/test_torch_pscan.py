@@ -136,3 +136,87 @@ def test_pscan_memory_is_linear_in_chunks(n, K, V):
         want.append(s)
     _gap(f"pscan vs loop n={n}", out.numpy(), torch.stack(want, 1).numpy(),
          1e-5)
+
+
+def _loop(a, b):
+    """The recurrence step by step in float64: the states restart from b
+    where a = 0."""
+    s = np.zeros_like(b[:, 0], dtype=np.float64)
+    out = []
+    for i in range(a.shape[1]):
+        s = a[:, i].reshape(a[:, i].shape + (1,) * (b.ndim - 3)) * s + b[:, i]
+        out.append(s)
+    return np.stack(out, 1)
+
+
+def test_prev_states_with_an_exact_zero_decay(jref):
+    """An a that is exactly 0 (a chunk decay that underflowed) restarts the
+    state from b, as the loop's and the reference's associative scan's do:
+    the port's states are finite (log 0 used to give -inf - -inf = NaN)
+    and equal both within 1e-6."""
+    _, jnp, jlayers, _ = jref
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0.2, 1.0, (2, 16, 4)).astype(np.float32)
+    a[0, 6, 1] = a[1, 0, 3] = a[1, 15, 0] = 0.0
+    b = rng.standard_normal((2, 16, 4, 3, 5)).astype(np.float32)
+    prev_j, final_j = jlayers._prev_states(jnp.asarray(a), jnp.asarray(b),
+                                           extra_dims=2)
+    prev_t, final_t = tlayers._prev_states(torch.tensor(a), torch.tensor(b),
+                                           extra_dims=2)
+    assert torch.isfinite(prev_t).all() and torch.isfinite(final_t).all()
+    incl = _loop(a, b)
+    _gap("pscan a=0 prev states vs reference", prev_t.numpy(), prev_j, 1e-6)
+    _gap("pscan a=0 final state vs reference", final_t.numpy(), final_j,
+         1e-6)
+    _gap("pscan a=0 final state vs loop", final_t.numpy(), incl[:, -1], 1e-6)
+    _gap("pscan a=0 prev states vs loop", prev_t.numpy()[:, 1:],
+         incl[:, :-1], 1e-6)
+    # right after the zero the state is the step's own input
+    np.testing.assert_allclose(
+        tlayers.linear_recurrence_pscan(torch.tensor(a), torch.tensor(b),
+                                        extra_dims=2)[0, 6, 1].numpy(),
+        b[0, 6, 1], rtol=0, atol=1e-7)
+
+
+def test_ssd_chunked_with_underflowing_chunk_decays(jref):
+    """Mamba2's SSD at zamba2's chunk of 128, A from -1 to -16 and dt from
+    its dt_bias init: most chunk decays exp(Σ dt·A) are exactly 0 in fp32.
+    The port's output, final state and gradients are finite and within
+    1e-4 of the reference's (jax.grad for the gradients)."""
+    jax, jnp, jlayers, _ = jref
+    Bn, S, H, P, N = 1, 512, 8, 16, 8
+    rng = np.random.default_rng(11)
+    dt = np.log1p(np.exp(rng.standard_normal((Bn, S, H))
+                         + rng.uniform(-4.0, -2.0, H))).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    x = rng.standard_normal((Bn, S, H, P)).astype(np.float32)
+    Bc = rng.standard_normal((Bn, S, N)).astype(np.float32)
+    Cc = rng.standard_normal((Bn, S, N)).astype(np.float32)
+    cum = (dt * A).reshape(Bn, S // 128, 128, H).sum(2)
+    zeros = int((np.exp(cum) == 0.0).sum())
+    print(f"ssd chunk decays exactly 0 in fp32: {zeros} of {cum.size}")
+    assert zeros >= cum.size // 4
+    args = (x, dt, A, Bc, Cc)
+    yj, sj = jlayers.ssd_chunked(*(jnp.asarray(v) for v in args), chunk=128,
+                                 return_state=True)
+    ta = [torch.tensor(v, requires_grad=True) for v in args]
+    yt, st = tlayers.ssd_chunked(*ta, chunk=128, return_state=True)
+    assert torch.isfinite(yt).all() and torch.isfinite(st).all()
+    _gap("ssd_chunked underflowing decays y", yt.detach().numpy(), yj, 1e-4)
+    _gap("ssd_chunked underflowing decays state", st.detach().numpy(), sj,
+         1e-4)
+    cot_y = rng.standard_normal(yt.shape).astype(np.float32)
+    cot_s = rng.standard_normal(st.shape).astype(np.float32)
+
+    def jloss(*v):
+        y, s = jlayers.ssd_chunked(*v, chunk=128, return_state=True)
+        return jnp.sum(y * cot_y) + jnp.sum(s * cot_s)
+
+    gj = jax.grad(jloss, argnums=tuple(range(5)))(
+        *(jnp.asarray(v) for v in args))
+    ((yt * torch.tensor(cot_y)).sum()
+     + (st * torch.tensor(cot_s)).sum()).backward()
+    for name, t, g in zip(("x", "dt", "A", "B", "C"), ta, gj):
+        assert torch.isfinite(t.grad).all(), name
+        _gap(f"ssd_chunked underflowing decays grad {name}", t.grad.numpy(),
+             g, 1e-4)

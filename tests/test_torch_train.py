@@ -255,10 +255,11 @@ def test_loss_gradients_match_jax_grad(model, remat):
 
 
 def test_unported_losses_raise():
-    """MLA (deepseek), hybrid (zamba2) and modality-prefix (musicgen)
-    configs raise in the loss and in prefill; the moe family without MLA
-    is ported (tests/test_torch_moe.py)."""
-    for name in ("musicgen-large", "deepseek-v3-671b", "zamba2-1.2b"):
+    """MLA (deepseek) and modality-prefix (musicgen, chameleon) configs
+    raise in the loss and in prefill; the moe family without MLA and the
+    hybrid family are ported (tests/test_torch_moe.py,
+    tests/test_torch_hybrid.py)."""
+    for name in ("musicgen-large", "deepseek-v3-671b", "chameleon-34b"):
         cfg = tconfigs.REDUCED[name]
         batch = {k: torch.tensor(v) for k, v in _batch(6, 1, 8).items()}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -393,8 +394,8 @@ def test_train_cli_loss_falls():
 def test_train_unported_options_raise(monkeypatch):
     """An arch with a prefix front end still raises, federated or not.
     And train() runs a kernel only where it has a gradient: the ssm family
-    on the WKV6 kernels, a dense or moe model on plain attention (the
-    flash kernel has no backward), in both branches."""
+    on the WKV6 kernels, a dense, moe or hybrid model on plain attention
+    (the flash kernel has no backward), in both branches."""
     from repro_torch.launch import train as ttrain
     for kw in (dict(), dict(silos=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -411,12 +412,12 @@ def test_train_unported_options_raise(monkeypatch):
 
     spy("make_train_step")
     spy("make_federated_round_step")
-    for arch in ("llama3.2-1b", ARCH, "granite-moe-1b-a400m"):
+    for arch in ("llama3.2-1b", ARCH, "granite-moe-1b-a400m", "zamba2-1.2b"):
         for silos in (1, 2):
             ttrain.train(arch, steps=2, batch=2, seq=16, silos=silos,
                          local_steps=2, device="cpu")
     assert {(family, name) for family, name, _ in seen} == {
-        (family, name) for family in ("dense", "ssm", "moe")
+        (family, name) for family in ("dense", "ssm", "moe", "hybrid")
         for name in ("make_train_step", "make_federated_round_step")}
     assert all(use == (family == "ssm") for family, _, use in seen), seen
 
