@@ -79,7 +79,23 @@ these paths through the port's public entry points:
   held to the forward, 32 bf16 decode steps eager and captured,
   BatchedServer eager and captured with a reused slot against fresh
   servers, 5 train steps under TrainConfig's defaults on plain
-  attention, and 3 fedavg rounds of 2 silos x 2 local steps.
+  attention, and 3 fedavg rounds of 2 silos x 2 local steps;
+- the modality-prefix families and MLA, random weights from a seed:
+  musicgen-large at full width and depth (48 layers, MHA 32/32 heads of
+  64, a synthetic prefix of 64 frames) prefilled in bf16 and fp32 (B=4 x
+  2048 after the prefix, T = 2112: the flash kernels' ragged last key
+  tile, 48 launches of each route, held against the plain path on the
+  logits and the whole cache), fp32 prefill(S - 1) + decode held to the
+  forward, 32 bf16 decode steps eager and captured, BatchedServer eager
+  and captured, 5 train steps of 2 x 1024 after the prefix on plain
+  attention and 3 fedavg rounds of 2 silos x 2 local steps with bf16
+  moments; chameleon-34b at full width with qk-norm, its depth cut to 8
+  of 48 layers (GQA 64/8 at hd 128, a prefix of 256 patches; bf16 and
+  fp32 prefills of 2 x 2048, the handoff, a decode eager and captured);
+  deepseek-v3 at full width cut to 2 layers and 32 of 256 experts (MLA:
+  a bf16 prefill into the latent cache, decode on it eager and captured,
+  the absorbed decode held to the expanded forward in fp32, 3 train
+  steps with MTP and bf16 moments).
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step, the federated rounds) give min / median / max
@@ -152,10 +168,11 @@ from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
                                       make_federated_round_step,
                                       make_prefill_step, make_serve_step,
                                       make_train_step, silo_opt_init)
-from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.launch.train import step_prefix, train  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
+from repro_torch.models.modality import synthetic_prefix  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -185,6 +202,9 @@ FLASH_SHAPES = [
     ("llama3.2-1b prefill", 4, 32, 8, 2048, 2048, 64, 0, 0.0, 0),
     ("granite-moe-1b prefill", 4, 16, 8, 2048, 2048, 64, 0, 0.0, 0),
     ("zamba2-1.2b prefill", 4, 32, 32, 2048, 2048, 64, 0, 0.0, 0),
+    # the prefix families: T = P + S, the prefix on the key axis too
+    ("musicgen-large prefill", 4, 32, 32, 2112, 2112, 64, 0, 0.0, 0),
+    ("chameleon-34b prefill", 2, 64, 8, 2304, 2304, 128, 0, 0.0, 0),
     ("gemma2-2b local layer", 1, 8, 4, 8192, 8192, 256, 4096, 50.0, 0),
     ("gemma2-2b global layer", 1, 8, 4, 8192, 8192, 256, 0, 50.0, 0),
     ("q tail at q_offset", 4, 32, 8, 256, 2048, 64, 0, 0.0, 1792),
@@ -247,6 +267,39 @@ ZAMBA = ARCHS["zamba2-1.2b"]
 ZAMBA_B, ZAMBA_S, ZAMBA_CACHE = 4, 2048, 4096
 ZAMBA_FED_ROUNDS = 3
 ZAMBA_REUSE_REQUESTS = 3  # served in turn through one slot, and each alone
+# musicgen-large (the audio family) at full width and depth, its EnCodec
+# frames a synthetic prefix of P = 64: bf16 and fp32 prefills of
+# MUSICGEN_B x MUSICGEN_S tokens after the prefix (the musicgen
+# FLASH_SHAPES row, T = 2112), the fp32 prefill(S - 1) + decode handoff at
+# B = 1, a bf16 decode, BatchedServer, TrainConfig's train steps on
+# MUSICGEN_TRAIN_B x MUSICGEN_TRAIN_S and federated rounds on
+# MUSICGEN_FED_B x MUSICGEN_TRAIN_S with bf16 moments (with fp32 ones two
+# silos of 3.2B do not fit beside one silo's gradients). A cache holds the
+# prefix, the prompt and the decode steps of the phase
+MUSICGEN = ARCHS["musicgen-large"]
+MUSICGEN_B, MUSICGEN_S = 4, 2048
+MUSICGEN_TRAIN_B, MUSICGEN_TRAIN_S, MUSICGEN_FED_B = 2, 1024, 4
+MUSICGEN_FED_ROUNDS = 3
+DECODE_ROOM = 256        # cache slots past the prompt: every decode step run
+# chameleon-34b (the vlm family, qk-norm) at full width, depth cut to 8 of
+# 48 layers (6.6B parameters; all 48 do not fit one card beside anything),
+# its VQ patches a synthetic prefix of P = 256: bf16 and fp32 prefills of
+# CHAMELEON_B x CHAMELEON_S (the chameleon FLASH_SHAPES row, GQA 8:1 at
+# hd 128, T = 2304), the fp32 handoff and a bf16 decode; no train leg
+# (fp32 params and moments of 6.6B exceed the card)
+CHAMELEON = ARCHS["chameleon-34b"].with_overrides(num_layers=8)
+CHAMELEON_B, CHAMELEON_S = 2, 2048
+# deepseek-v3 (MLA, the moe family) at full width, cut to 2 layers (1
+# dense + 1 MoE) and 32 of 256 experts, top-8 kept: a bf16 prefill of
+# DEEPSEEK_B x DEEPSEEK_S, a bf16 decode on the latent cache, the fp32
+# handoff (absorbed decode vs the expanded forward) and TrainConfig's
+# train steps with MTP, bf16 moments (a cut: fp32 ones do not fit beside
+# fp32 params and gradients of 4.8B)
+DEEPSEEK = ARCHS["deepseek-v3-671b"].with_overrides(
+    num_layers=2, first_k_dense=1,
+    moe=replace(ARCHS["deepseek-v3-671b"].moe, num_experts=32))
+DEEPSEEK_B, DEEPSEEK_S = 2, 2048
+DEEPSEEK_TRAIN_B, DEEPSEEK_TRAIN_S, DEEPSEEK_TRAIN_STEPS = 1, 1024, 3
 # a routing flip (a token's chosen experts differ between two paths) in
 # the first layer that has one, where the two paths' inputs differ by
 # rounding only, is explained when the plain path's top-k margin there is
@@ -2394,28 +2447,138 @@ def greedy_run(step, params, state, tok, pos, n):
     return torch.stack(toks), logits
 
 
-def phase_granite_moe(dev):
-    """granite-moe-1b-a400m at full width and depth (24 layers, d 1024,
-    16/8 heads of 64, 32 experts top-8 of width 512, the gspmd dispatch),
-    random weights from a seed: the prefills of granite_prefills; 32 bf16
-    decode steps at B = 4 from the bf16 prefill, eager and captured (the
-    same tokens and bitwise the same logits, from two copies of the
-    state), then timed as llama's; BatchedServer in fp32 eager and
-    captured; TrainConfig's train steps on plain attention; FedDCL's
-    federated round, GRANITE_FED_ROUNDS fedavg rounds of 2 silos x 2
-    local steps. Returns the row."""
-    cfg = GRANITE
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(7)
-    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
-    # bf16 weights; the router stays fp32, as a bf16 init keeps it
-    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
-    p16["layers"]["moe"]["router"] = p32["layers"]["moe"]["router"]
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prefill, (logits, state, nxt) = granite_prefills(cfg, p32, p16, dev)
+def lm_prefills(cfg, p32, p16, B, S, cache_len, seed, dev):
+    """fp32 and bf16 prefills of the same B x S prompt (after a prefix
+    family's prefix, drawn by ``synthetic_prefix``), each on the kernel
+    path (counted by route) and on the plain path; the bf16 kernel path
+    profiled. Returns (row, the bf16 kernel path's logits, state and next
+    position for decode)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": random_tokens(seed, (B, S), cfg.vocab_size, dev)}
+    if cfg.prefix_frontend:
+        batch["prefix_embeds"] = synthetic_prefix(gen, cfg, B, device=dev)
+    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+    steps = {(dt, k): make_prefill_step(cfg, cache_len=cache_len,
+                                        use_kernels=k, device=dev,
+                                        **(f32 if dt == "fp32" else {}))
+             for dt in ("fp32", "bf16") for k in (True, False)}
+    params = {"fp32": p32, "bf16": p16}
+    out, launches, secs = {}, {}, {}
+    for dt in ("fp32", "bf16"):
+        for k in (True, False):
+            fa_kernel.reset_launches()
+            out[dt, k] = steps[dt, k](params[dt], batch)
+            torch.cuda.synchronize()
+            launches[dt, k] = dict(fa_kernel.route_launches)
+            secs[dt, k] = wall_s(lambda: steps[dt, k](params[dt], batch),
+                                 reps=3 if (dt, k) == ("bf16", True) else 1)
+    _, per_kernel, kernels, _ = profile_device(
+        lambda: steps["bf16", True](p16, batch))
+    dev_s = sum(per_kernel.values())
+    logits = {key: o[0] for key, o in out.items()}
+    ref_logits, ref_state = logits["fp32", False], out["fp32", False][1]
+    lrel = {key: rel_dev(logits[key], ref_logits) for key in logits}
+    srel = {key: state_rel(out[key][1], ref_state) for key in out}
+    T = cfg.prefix_len + S
+    row = {"batch": B, "seq": S, "prefix_len": cfg.prefix_len,
+           "cache_len": cache_len,
+           "next_pos": sorted(set(out["bf16", True][2].tolist())),
+           "bf16": {
+               "flash_launches": launches["bf16", True],
+               "plain_path_launches": launches["bf16", False],
+               "prefill_s": secs["bf16", True],
+               "prefill_tokens_per_s": B * T / secs["bf16", True],
+               "plain_path_s": secs["bf16", False],
+               "profiled_device_s": dev_s, "kernels": kernels,
+               "flash_share_of_device_time": sum(
+                   t for n, t in per_kernel.items()
+                   if "flash_fwd_kernel_wgmma" in n) / dev_s,
+               "top_kernels_s": sorted(per_kernel.items(),
+                                       key=lambda kv: -kv[1])[:6],
+               "vs_fp32_plain": {
+                   "kernel_path_logits_rel": lrel["bf16", True],
+                   "plain_path_logits_rel": lrel["bf16", False],
+                   "kernel_path_state_rel": srel["bf16", True],
+                   "plain_path_state_rel": srel["bf16", False]},
+               "logits_finite": bool(torch.isfinite(
+                   logits["bf16", True]).all())},
+           "fp32": {
+               "flash_launches": launches["fp32", True],
+               "kernel_path_s": secs["fp32", True],
+               "plain_path_s": secs["fp32", False],
+               "kernel_vs_plain_logits_rel": lrel["fp32", True],
+               "kernel_vs_plain_state_rel": srel["fp32", True],
+               "logits_finite": bool(torch.isfinite(
+                   logits["fp32", True]).all())}}
+    keep = out["bf16", True]
+    del out
+    torch.cuda.empty_cache()
+    return row, keep
 
-    # decode: eager against captured from two copies of the bf16 state
+
+def check_prefills(name, row, n):
+    """`n` flash launches of the dtype's route in each kernel-path
+    prefill, none on the plain path; fp32 kernel vs plain within LM_TOL
+    (logits and the whole cache); the bf16 rule on both."""
+    bf, fp = row["bf16"], row["fp32"]
+    check(bf["flash_launches"][fa_kernel.BF16_ROUTE] == n
+          and sum(bf["flash_launches"].values()) == n,
+          f"{name} bf16 prefill launches by route: {bf['flash_launches']}")
+    check(fp["flash_launches"][fa_kernel.F32_ROUTE] == n
+          and sum(fp["flash_launches"].values()) == n,
+          f"{name} fp32 prefill launches by route: {fp['flash_launches']}")
+    check(sum(bf["plain_path_launches"].values()) == 0,
+          f"{name} plain-path prefill launched a flash kernel")
+    check(bf["logits_finite"] and fp["logits_finite"],
+          f"{name} prefill logits")
+    vs = bf["vs_fp32_plain"]
+    for what in ("logits", "state"):
+        got, plain = vs[f"kernel_path_{what}_rel"], vs[f"plain_path_{what}_rel"]
+        check(got <= BF16_GAP * plain,
+              f"{name} bf16 kernel path vs fp32 plain ({what}): {got} > "
+              f"{BF16_GAP} x the bf16 plain path's {plain}")
+    check(fp["kernel_vs_plain_logits_rel"] <= LM_TOL
+          and fp["kernel_vs_plain_state_rel"] <= LM_TOL,
+          f"{name} fp32 kernel vs plain: logits "
+          f"{fp['kernel_vs_plain_logits_rel']}, state "
+          f"{fp['kernel_vs_plain_state_rel']}")
+
+
+def lm_handoff(cfg, p32, S, cache_len, seed, dev):
+    """fp32 at B = 1: prefill(S - 1) (after the prefix, for a prefix
+    family) then one decode step, against the forward's last position over
+    the prefix and all S tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = random_tokens(seed, (1, S), cfg.vocab_size, dev)
+    pe = (synthetic_prefix(gen, cfg, 1, device=dev)
+          if cfg.prefix_frontend else None)
+    f32 = dict(compute_dtype=torch.float32)
+    batch = {"tokens": tok[:, :-1]}
+    if pe is not None:
+        batch["prefix_embeds"] = pe
+    _, state, nxt = make_prefill_step(cfg, cache_len=cache_len,
+                                      cache_dtype=torch.float32, device=dev,
+                                      **f32)(p32, batch)
+    ldec, _ = make_serve_step(cfg, device=dev, **f32)(p32, state, tok[:, -1:],
+                                                      nxt)
+    del state
+    with torch.no_grad():
+        full, _, _ = bb.forward(p32, tok, cfg, prefix_embeds=pe, **f32)
+    out = {"prefill_len": S - 1, "prefix_len": cfg.prefix_len,
+           "decode_pos": int(nxt[0]),
+           "decode_vs_forward_logits_rel": rel_dev(ldec[:, 0], full[:, -1]),
+           "logits_finite": bool(torch.isfinite(ldec).all())}
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_decode(cfg, p16, logits, state, nxt, dev):
+    """DECODE_STEPS greedy bf16 steps from a prefill's state, eager and
+    captured from two copies of it (the same tokens and bitwise the same
+    logits), then timed eager runs and a short profiled one, and
+    captured_decode's rows, on `state` itself. Returns the row."""
+    B = logits.shape[0]
     tok = logits[:, 0].argmax(-1, keepdim=True)
     s_e, s_c = (tree_map(torch.clone, state) for _ in range(2))
     te, le = greedy_run(make_serve_step(cfg, device=dev), p16, s_e, tok,
@@ -2430,9 +2593,9 @@ def phase_granite_moe(dev):
     pos = nxt + DECODE_STEPS
     tok = te[-1][:, None]
 
-    def decode_run():
+    def decode_run(steps=DECODE_STEPS):
         nonlocal tok, pos
-        for _ in range(DECODE_STEPS):
+        for _ in range(steps):
             out, _ = serve_step(p16, state, tok, pos)
             tok = out[:, 0].argmax(-1, keepdim=True)
             pos = pos + 1
@@ -2445,12 +2608,40 @@ def phase_granite_moe(dev):
         decode_run()
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t1)
-    prof_wall, per_kernel, kernels, _ = profile_device(decode_run)
+    prof_wall, per_kernel, kernels, _ = profile_device(
+        lambda: decode_run(PROFILE_STEPS))
     busy = sum(per_kernel.values())
     graph = captured_decode(cfg, p16, state, tok, pos, dev)
-    del state, logits
-    torch.cuda.empty_cache()
+    return {"batch": B, "steps": DECODE_STEPS, "start_pos": int(nxt[0]),
+            "captured_tokens_equal_eager": same_tokens,
+            "captured_logits_bitwise_eager": bitwise,
+            "logits_finite": finite,
+            "eager_decode_tokens_per_s_spread": spread(
+                B * DECODE_STEPS / t for t in runs),
+            "eager_ms_per_step": statistics.median(runs)
+                                 / DECODE_STEPS * 1e3,
+            "eager_profiled_device_busy_share": busy / prof_wall,
+            "eager_device_ms_per_step": busy / PROFILE_STEPS * 1e3,
+            "kernels_per_step": kernels / PROFILE_STEPS,
+            "graph": graph}
 
+
+def check_decode(name, decode):
+    check(decode["captured_tokens_equal_eager"]
+          and decode["captured_logits_bitwise_eager"]
+          and decode["logits_finite"],
+          f"{name} captured vs eager decode: tokens "
+          f"{decode['captured_tokens_equal_eager']}, logits bitwise "
+          f"{decode['captured_logits_bitwise_eager']}, finite "
+          f"{decode['logits_finite']}")
+    graph = decode["graph"]
+    check(graph["vs_eager_logits_rel"] <= GRAPH_TOL and graph["captures"] == 2,
+          f"{name} captured decode rows: {graph}")
+
+
+def lm_server(cfg, p32, dev):
+    """BatchedServer in fp32 over 8 requests on 4 slots, eager then
+    captured (cold and warm runs)."""
     def requests():
         rng = np.random.default_rng(1)
         return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
@@ -2464,31 +2655,64 @@ def phase_granite_moe(dev):
     torch.cuda.synchronize()
     eager_serve_s = time.perf_counter() - t1
     total = sum(len(v) for v in outs.values())
-    captured_server = captured_server_runs(cfg, p32, requests, outs, dev,
-                                           cache_len=256)
-    del server, p16
+    captured = captured_server_runs(cfg, p32, requests, outs, dev,
+                                    cache_len=256)
+    del server
     torch.cuda.empty_cache()
-    decode = {"batch": GRANITE_B, "steps": DECODE_STEPS,
-              "start_pos": GRANITE_S,
-              "captured_tokens_equal_eager": same_tokens,
-              "captured_logits_bitwise_eager": bitwise,
-              "logits_finite": finite,
-              "eager_decode_tokens_per_s_spread": spread(
-                  GRANITE_B * DECODE_STEPS / t for t in runs),
-              "eager_ms_per_step": statistics.median(runs)
-                                   / DECODE_STEPS * 1e3,
-              "eager_profiled_device_busy_share": busy / prof_wall,
-              "eager_device_ms_per_step": busy / DECODE_STEPS * 1e3,
-              "kernels_per_step": kernels / DECODE_STEPS,
-              "graph": graph,
-              "server_fp32": {"requests": 8, "slots": 4, "cache_len": 256,
-                              "max_new": 16, "new_tokens": total,
-                              "status": sorted(set(outs.status.values())),
-                              "eager_serve_s": eager_serve_s,
-                              "eager_server_tokens_per_s":
-                                  total / eager_serve_s,
-                              "captured": captured_server}}
+    return {"requests": 8, "slots": 4, "cache_len": 256, "max_new": 16,
+            "new_tokens": total, "status": sorted(set(outs.status.values())),
+            "every_request_16_tokens": all(len(v) == 16
+                                           for v in outs.values()),
+            "eager_serve_s": eager_serve_s,
+            "eager_server_tokens_per_s": total / eager_serve_s,
+            "captured": captured}
 
+
+def check_server(name, server):
+    """Every request done with its 16 tokens; the captured server's tokens
+    the eager server's, with one graph a slot and one for the batch."""
+    captured = server["captured"]
+    check(server["status"] == ["done"] and server["every_request_16_tokens"],
+          f"{name} server statuses {server['status']}")
+    check(captured["tokens_equal_eager"]
+          and captured["captures"] == captured["slots"] + 1,
+          f"{name} captured server: {captured}")
+
+
+def bf16_copy(p32):
+    """bf16 weights of an fp32 tree; a router (and its bias) stays fp32, as
+    a bf16 init keeps it."""
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+    moe = p16.get("layers", {}).get("moe")
+    if moe is not None:
+        for k in ("router", "router_bias"):
+            if k in moe:
+                moe[k] = p32["layers"]["moe"][k]
+    return p16
+
+
+def phase_granite_moe(dev):
+    """granite-moe-1b-a400m at full width and depth (24 layers, d 1024,
+    16/8 heads of 64, 32 experts top-8 of width 512, the gspmd dispatch),
+    random weights from a seed: the prefills of granite_prefills; 32 bf16
+    decode steps at B = 4 from the bf16 prefill, eager and captured (the
+    same tokens and bitwise the same logits, from two copies of the
+    state), then timed as llama's; BatchedServer in fp32 eager and
+    captured; TrainConfig's train steps on plain attention; FedDCL's
+    federated round, GRANITE_FED_ROUNDS fedavg rounds of 2 silos x 2
+    local steps. Returns the row."""
+    cfg = GRANITE
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    p16 = bf16_copy(p32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, (logits, state, nxt) = granite_prefills(cfg, p32, p16, dev)
+    decode = lm_decode(cfg, p16, logits, state, nxt, dev)
+    del state, logits, p16
+    torch.cuda.empty_cache()
+    decode["server_fp32"] = lm_server(cfg, p32, dev)
     train = lm_train(cfg, p32, dev, GRANITE_B, GRANITE_S)
     fed = lm_federated(cfg, p32, dev, GRANITE_B, GRANITE_S,
                        GRANITE_FED_ROUNDS)
@@ -2526,23 +2750,31 @@ def phase_granite_moe(dev):
     check(fp["kernel_vs_plain_logits_rel"] <= LM_TOL or flips["flipped"],
           f"granite fp32 kernel vs plain logits "
           f"{fp['kernel_vs_plain_logits_rel']} with no routing flip")
-    check(same_tokens and bitwise and finite,
-          f"granite captured vs eager decode: tokens {same_tokens}, "
-          f"logits bitwise {bitwise}, finite {finite}")
-    check(set(outs.status.values()) == {"done"}
-          and all(len(v) == 16 for v in outs.values()),
-          f"granite server statuses {outs.status}")
-    check_graph_rows(cfg.name, graph, captured_server)
+    check_decode(cfg.name, decode)
+    check_server(cfg.name, decode["server_fp32"])
     return row
 
 
-def lm_train(cfg, p32, dev, B, S):
-    """TRAIN_STEPS of make_train_step at TrainConfig's defaults (fp32
-    params, bf16 compute, fp32 AdamW, remat) on B x S tokens, on plain
-    attention, as train() runs moe and hybrid, from a copy of `p32`."""
+def lm_batch(cfg, stream, i, B, dev):
+    """TokenStream's batch i, with a prefix family's prefix (B, P, d) for
+    step i as train() draws it."""
+    b = stream.batch(i)
+    if cfg.prefix_frontend:
+        b["prefix_embeds"] = step_prefix(cfg, 0, i, (B,), dev)
+    return b
+
+
+def lm_train(cfg, p32, dev, B, S, *, steps=TRAIN_STEPS, in_place=False,
+             opt_state_dtype="float32"):
+    """`steps` of make_train_step at TrainConfig's defaults (fp32 params,
+    bf16 compute, AdamW with `opt_state_dtype` moments, remat) on B x S
+    tokens (after a prefix family's prefix), on plain attention, as
+    train() runs every family but ssm, from a copy of `p32` (`in_place`:
+    on `p32` itself, which the steps then train)."""
     tc = TrainConfig(model=cfg, shape=InputShape("chip", S, B, "train"),
-                     warmup_steps=2, total_steps=TRAIN_STEPS)
-    params = tree_map(torch.clone, p32)
+                     warmup_steps=2, total_steps=steps,
+                     opt_state_dtype=opt_state_dtype)
+    params = p32 if in_place else tree_map(torch.clone, p32)
     step, opt = make_train_step(cfg, tc, use_kernels=False, device=dev)
     opt_state = opt.init(params)
     torch.cuda.synchronize()
@@ -2551,23 +2783,26 @@ def lm_train(cfg, p32, dev, B, S):
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_launches()
     metrics, step_s = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, m = step(params, opt_state, stream.batch(i))
+        params, opt_state, m = step(params, opt_state,
+                                    lm_batch(cfg, stream, i, B, dev))
         metrics.append({k: float(v) for k, v in m.items()})
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last = lm_batch(cfg, stream, steps, B, dev)
     wall, per_kernel, kernels, _ = profile_device(
-        lambda: step(params, opt_state, stream.batch(TRAIN_STEPS)))
+        lambda: step(params, opt_state, last))
     dev_s = sum(per_kernel.values())
     steady = statistics.median(step_s[1:])
     row = {"train_config": {"param_dtype": tc.param_dtype,
                             "compute_dtype": tc.compute_dtype,
                             "opt_state_dtype": tc.opt_state_dtype,
                             "remat": tc.remat, "use_kernels": False},
-           "batch": B, "seq": S, "steps": TRAIN_STEPS,
+           "batch": B, "seq": S, "prefix_len": cfg.prefix_len,
+           "steps": steps,
            "params_and_opt_state_gb": state_gb,
            "max_memory_allocated_gb": peak_gb, "metrics": metrics,
            "step_s": step_s, "steady_step_s_spread": spread(step_s[1:]),
@@ -2585,21 +2820,29 @@ def lm_train(cfg, p32, dev, B, S):
     return row
 
 
-def lm_federated(cfg, p32, dev, B, S, rounds):
+def lm_federated(cfg, p32, dev, B, S, rounds, *, opt_state_dtype="float32",
+                 release=False):
     """FedDCL's launch tier at full width: 2 silos x 2 local steps a
-    round, B x S tokens a step split over the silos, fedavg with fp32
-    AdamW, `rounds` rounds from `p32` stacked per silo: the first as its
-    local phase then the sync (the silos compared between), the rest
-    through make_federated_round_step."""
+    round, B x S tokens a step split over the silos (a prefix family's
+    prefix per silo too, as train() draws it), fedavg with AdamW's moments
+    in `opt_state_dtype`, `rounds` rounds from `p32` stacked per silo: the
+    first as its local phase then the sync (the silos compared between),
+    the rest through make_federated_round_step. `release` empties the
+    caller's `p32` dict once the stack is made, so its tensors are freed
+    before the moments are."""
     d, h, b = 2, 2, B // 2
     fed = FederatedConfig(num_silos=d, local_steps=h)
     tc = TrainConfig(model=cfg, shape=InputShape("chip", S, B, "train"),
-                     federated=fed, warmup_steps=2, total_steps=rounds * h)
+                     federated=fed, warmup_steps=2, total_steps=rounds * h,
+                     opt_state_dtype=opt_state_dtype)
     kw = dict(use_kernels=False, device=dev)
     phase, opt = make_federated_local_phase_step(cfg, tc, **kw)
     round_step, _ = make_federated_round_step(cfg, tc, **kw)
     sync = make_fedavg_sync_step(tc, device=dev)
     sp = tree_map(lambda a: a.contiguous(), silo_replicate(p32, d))
+    if release:
+        p32.clear()
+        torch.cuda.empty_cache()
     so = silo_opt_init(opt, sp)
     torch.cuda.synchronize()
     state_gb = torch.cuda.memory_allocated() / 1e9
@@ -2607,7 +2850,12 @@ def lm_federated(cfg, p32, dev, B, S, rounds):
     def batches(r):
         out = [silo_batches(cfg.vocab_size, S, b, d, r * h + i, seed=0)
                for i in range(h)]
-        return {k: np.stack([o[k] for o in out]) for k in out[0]}
+        bs = {k: np.stack([o[k] for o in out]) for k in out[0]}
+        if cfg.prefix_frontend:
+            bs["prefix_embeds"] = torch.stack([
+                step_prefix(cfg, 0, r * h + i, (d, b), dev)
+                for i in range(h)])
+        return bs
 
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_launches()
@@ -2631,7 +2879,7 @@ def lm_federated(cfg, p32, dev, B, S, rounds):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(round_s)
     row = {"silos": d, "local_steps": h, "per_silo_batch": b,
-           "seq": S, "rounds": rounds,
+           "seq": S, "prefix_len": cfg.prefix_len, "rounds": rounds,
            "aggregator": fed.aggregator, "opt_state_dtype": tc.opt_state_dtype,
            "stacked_params_and_opt_state_gb": state_gb,
            "max_memory_allocated_gb": peak_gb, "round_s": round_s,
@@ -2679,91 +2927,23 @@ def ssd_timer():
 
 
 def zamba2_prefills(cfg, p32, p16, dev):
-    """fp32 and bf16 prefills of the same ZAMBA_B x ZAMBA_S prompt, each on
-    the kernel path (counted by route) and on the plain path; the bf16
-    kernel path profiled, its SSD scans timed. Returns (row, the bf16
-    kernel path's logits and state for decode)."""
+    """lm_prefills of ZAMBA_B x ZAMBA_S, then the bf16 kernel path once
+    more with its SSD scans timed by CUDA events, against the profiled
+    device time. Returns (row, the bf16 kernel path's logits, state and
+    next position)."""
+    row, keep = lm_prefills(cfg, p32, p16, ZAMBA_B, ZAMBA_S, ZAMBA_CACHE,
+                            17, dev)
+    step = make_prefill_step(cfg, cache_len=ZAMBA_CACHE, device=dev)
     tokens = {"tokens": random_tokens(17, (ZAMBA_B, ZAMBA_S),
                                       cfg.vocab_size, dev)}
-    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
-    steps = {(dt, k): make_prefill_step(cfg, cache_len=ZAMBA_CACHE,
-                                        use_kernels=k, device=dev,
-                                        **(f32 if dt == "fp32" else {}))
-             for dt in ("fp32", "bf16") for k in (True, False)}
-    params = {"fp32": p32, "bf16": p16}
-    out, launches, secs = {}, {}, {}
-    for dt in ("fp32", "bf16"):
-        for k in (True, False):
-            fa_kernel.reset_launches()
-            out[dt, k] = steps[dt, k](params[dt], tokens)
-            torch.cuda.synchronize()
-            launches[dt, k] = dict(fa_kernel.route_launches)
-            secs[dt, k] = wall_s(lambda: steps[dt, k](params[dt], tokens),
-                                 reps=3 if (dt, k) == ("bf16", True) else 1)
-    bf16_kernel = lambda: steps["bf16", True](p16, tokens)
-    _, per_kernel, kernels, _ = profile_device(bf16_kernel)
-    dev_s = sum(per_kernel.values())
     with ssd_timer() as ssd_events:
-        bf16_kernel()
+        step(p16, tokens)
     torch.cuda.synchronize()
     ssd_s = sum(s.elapsed_time(e) for s, e in ssd_events) / 1e3
-    logits = {key: o[0] for key, o in out.items()}
-    ref_logits, ref_state = logits["fp32", False], out["fp32", False][1]
-    lrel = {key: rel_dev(logits[key], ref_logits) for key in logits}
-    srel = {key: state_rel(out[key][1], ref_state) for key in out}
-    row = {"batch": ZAMBA_B, "seq": ZAMBA_S, "cache_len": ZAMBA_CACHE,
-           "bf16": {
-               "flash_launches": launches["bf16", True],
-               "plain_path_launches": launches["bf16", False],
-               "prefill_s": secs["bf16", True],
-               "prefill_tokens_per_s": ZAMBA_B * ZAMBA_S
-                                       / secs["bf16", True],
-               "plain_path_s": secs["bf16", False],
-               "profiled_device_s": dev_s, "kernels": kernels,
-               "flash_share_of_device_time": sum(
-                   t for n, t in per_kernel.items()
-                   if "flash_fwd_kernel_wgmma" in n) / dev_s,
-               "ssd_calls": len(ssd_events), "ssd_event_s": ssd_s,
-               "ssd_share_of_device_time": ssd_s / dev_s,
-               "top_kernels_s": sorted(per_kernel.items(),
-                                       key=lambda kv: -kv[1])[:8],
-               "vs_fp32_plain": {
-                   "kernel_path_logits_rel": lrel["bf16", True],
-                   "plain_path_logits_rel": lrel["bf16", False],
-                   "kernel_path_state_rel": srel["bf16", True],
-                   "plain_path_state_rel": srel["bf16", False]},
-               "logits_finite": bool(torch.isfinite(
-                   logits["bf16", True]).all())},
-           "fp32": {
-               "flash_launches": launches["fp32", True],
-               "kernel_path_s": secs["fp32", True],
-               "plain_path_s": secs["fp32", False],
-               "kernel_vs_plain_logits_rel": lrel["fp32", True],
-               "kernel_vs_plain_state_rel": srel["fp32", True],
-               "logits_finite": bool(torch.isfinite(
-                   logits["fp32", True]).all())}}
-    keep = out["bf16", True]
-    del out
+    bf = row["bf16"]
+    bf.update(ssd_calls=len(ssd_events), ssd_event_s=ssd_s,
+              ssd_share_of_device_time=ssd_s / bf["profiled_device_s"])
     return row, keep
-
-
-def zamba2_handoff(cfg, p32, dev):
-    """fp32 at B = 1: prefill(S - 1) (the last SSD chunk padded) then one
-    decode step, against the forward's last position over all S tokens:
-    the padded scan's final state, the conv window and the KV cache carry
-    the prompt into decode."""
-    tok = random_tokens(18, (1, ZAMBA_S), cfg.vocab_size, dev)
-    f32 = dict(compute_dtype=torch.float32)
-    _, state, nxt = make_prefill_step(cfg, cache_len=ZAMBA_CACHE,
-                                      cache_dtype=torch.float32, device=dev,
-                                      **f32)(p32, {"tokens": tok[:, :-1]})
-    ldec, _ = make_serve_step(cfg, device=dev, **f32)(p32, state, tok[:, -1:],
-                                                      nxt)
-    with torch.no_grad():
-        full, _, _ = bb.forward(p32, tok, cfg, **f32)
-    return {"prefill_len": ZAMBA_S - 1, "chunk": cfg.ssm.chunk,
-            "decode_vs_forward_logits_rel": rel_dev(ldec[:, 0], full[:, -1]),
-            "logits_finite": bool(torch.isfinite(ldec).all())}
 
 
 def zamba2_reuse(cfg, p32, dev):
@@ -2791,7 +2971,7 @@ def phase_zamba2_hybrid(dev):
     32/32 heads of 64, then 2 trailing blocks; d 2048, SSD 64 heads of 64,
     state 64, chunk 128; vocab 32,000, untied), random weights from a
     seed: the prefills of zamba2_prefills; the fp32 handoff of
-    zamba2_handoff; 32 bf16 decode steps at B = 4 from the bf16 prefill,
+    lm_handoff; 32 bf16 decode steps at B = 4 from the bf16 prefill,
     eager and captured (the same tokens and bitwise the same logits, from
     two copies of the state), then timed as llama's; BatchedServer in fp32
     eager and captured, and a reused slot against fresh servers;
@@ -2810,86 +2990,14 @@ def phase_zamba2_hybrid(dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prefill, (logits, state, nxt) = zamba2_prefills(cfg, p32, p16, dev)
-    handoff = zamba2_handoff(cfg, p32, dev)
-
-    # decode: eager against captured from two copies of the bf16 state
-    tok = logits[:, 0].argmax(-1, keepdim=True)
-    s_e, s_c = (tree_map(torch.clone, state) for _ in range(2))
-    te, le = greedy_run(make_serve_step(cfg, device=dev), p16, s_e, tok,
-                        nxt.clone(), DECODE_STEPS)
-    cap_step = make_captured_serve_step(cfg, device=dev)
-    tc_, lc = greedy_run(cap_step, p16, s_c, tok, nxt.clone(), DECODE_STEPS)
-    same_tokens = bool(torch.equal(te, tc_))
-    bitwise = all(torch.equal(a, b) for a, b in zip(le, lc))
-    finite = all(bool(torch.isfinite(a).all()) for a in le)
-    del s_e, s_c, le, lc
-    serve_step = make_serve_step(cfg, device=dev)
-    pos = nxt + DECODE_STEPS
-    tok = te[-1][:, None]
-
-    def decode_run(steps=DECODE_STEPS):
-        nonlocal tok, pos
-        for _ in range(steps):
-            out, _ = serve_step(p16, state, tok, pos)
-            tok = out[:, 0].argmax(-1, keepdim=True)
-            pos = pos + 1
-        return out
-
-    runs = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        decode_run()
-        torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t1)
-    # a short profiled run: the profiler's post-processing grows with the
-    # ~2,500 kernels a step
-    prof_wall, per_kernel, kernels, _ = profile_device(
-        lambda: decode_run(PROFILE_STEPS))
-    busy = sum(per_kernel.values())
-    graph = captured_decode(cfg, p16, state, tok, pos, dev)
+    # the last SSD chunk of prefill(S - 1) is padded
+    handoff = lm_handoff(cfg, p32, ZAMBA_S, ZAMBA_CACHE, 18, dev)
+    decode = lm_decode(cfg, p16, logits, state, nxt, dev)
     del state, logits, p16
     torch.cuda.empty_cache()
-
-    def requests():
-        rng = np.random.default_rng(1)
-        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                   size=rng.integers(4, 12)),
-                        max_new=16) for i in range(8)]
-
-    server = BatchedServer(cfg, p32, slots=4, cache_len=256, device=dev,
-                           capture=False)
-    t1 = time.perf_counter()
-    outs = server.serve(requests())
-    torch.cuda.synchronize()
-    eager_serve_s = time.perf_counter() - t1
-    total = sum(len(v) for v in outs.values())
-    captured_server = captured_server_runs(cfg, p32, requests, outs, dev,
-                                           cache_len=256)
-    reuse = zamba2_reuse(cfg, p32, dev)
-    del server
+    decode["server_fp32"] = lm_server(cfg, p32, dev)
+    decode["server_fp32"]["slot_reuse"] = reuse = zamba2_reuse(cfg, p32, dev)
     torch.cuda.empty_cache()
-    decode = {"batch": ZAMBA_B, "steps": DECODE_STEPS, "start_pos": ZAMBA_S,
-              "captured_tokens_equal_eager": same_tokens,
-              "captured_logits_bitwise_eager": bitwise,
-              "logits_finite": finite,
-              "eager_decode_tokens_per_s_spread": spread(
-                  ZAMBA_B * DECODE_STEPS / t for t in runs),
-              "eager_ms_per_step": statistics.median(runs)
-                                   / DECODE_STEPS * 1e3,
-              "eager_profiled_device_busy_share": busy / prof_wall,
-              "eager_device_ms_per_step": busy / PROFILE_STEPS * 1e3,
-              "kernels_per_step": kernels / PROFILE_STEPS,
-              "graph": graph,
-              "server_fp32": {"requests": 8, "slots": 4, "cache_len": 256,
-                              "max_new": 16, "new_tokens": total,
-                              "status": sorted(set(outs.status.values())),
-                              "eager_serve_s": eager_serve_s,
-                              "eager_server_tokens_per_s":
-                                  total / eager_serve_s,
-                              "captured": captured_server,
-                              "slot_reuse": reuse}}
-
     train = lm_train(cfg, p32, dev, ZAMBA_B, ZAMBA_S)
     fed = lm_federated(cfg, p32, dev, ZAMBA_B, ZAMBA_S, ZAMBA_FED_ROUNDS)
     rounds = cfg.num_layers // cfg.hybrid_period
@@ -2905,43 +3013,189 @@ def phase_zamba2_hybrid(dev):
            "init_s": init_s, "prefill": prefill, "handoff_fp32": handoff,
            "decode": decode, "train": train, "federated": fed}
     emit(row)
-    bf, fp = prefill["bf16"], prefill["fp32"]
-    check(bf["flash_launches"][fa_kernel.BF16_ROUTE] == rounds
-          and sum(bf["flash_launches"].values()) == rounds,
-          f"zamba2 bf16 prefill launches by route: {bf['flash_launches']}")
-    check(fp["flash_launches"][fa_kernel.F32_ROUTE] == rounds
-          and sum(fp["flash_launches"].values()) == rounds,
-          f"zamba2 fp32 prefill launches by route: {fp['flash_launches']}")
-    check(sum(bf["plain_path_launches"].values()) == 0,
-          "zamba2 plain-path prefill launched a flash kernel")
-    check(bf["ssd_calls"] == cfg.num_layers,
-          f"zamba2 bf16 prefill: {bf['ssd_calls']} SSD scans")
-    check(bf["logits_finite"] and fp["logits_finite"],
-          "zamba2 prefill logits")
-    vs = bf["vs_fp32_plain"]
-    for what in ("logits", "state"):
-        got, plain = vs[f"kernel_path_{what}_rel"], vs[f"plain_path_{what}_rel"]
-        check(got <= BF16_GAP * plain,
-              f"zamba2 bf16 kernel path vs fp32 plain ({what}): {got} > "
-              f"{BF16_GAP} x the bf16 plain path's {plain}")
-    check(fp["kernel_vs_plain_logits_rel"] <= LM_TOL
-          and fp["kernel_vs_plain_state_rel"] <= LM_TOL,
-          f"zamba2 fp32 kernel vs plain: logits "
-          f"{fp['kernel_vs_plain_logits_rel']}, state "
-          f"{fp['kernel_vs_plain_state_rel']}")
+    check_prefills("zamba2", prefill, rounds)
+    check(prefill["bf16"]["ssd_calls"] == cfg.num_layers,
+          f"zamba2 bf16 prefill: {prefill['bf16']['ssd_calls']} SSD scans")
     check(handoff["logits_finite"]
           and handoff["decode_vs_forward_logits_rel"] <= LM_TOL,
           f"zamba2 fp32 prefill(S-1) + decode vs forward: {handoff}")
-    check(same_tokens and bitwise and finite,
-          f"zamba2 captured vs eager decode: tokens {same_tokens}, "
-          f"logits bitwise {bitwise}, finite {finite}")
-    check(set(outs.status.values()) == {"done"}
-          and all(len(v) == 16 for v in outs.values()),
-          f"zamba2 server statuses {outs.status}")
+    check_decode(cfg.name, decode)
+    check_server(cfg.name, decode["server_fp32"])
     check(reuse["reused_slot_equals_fresh_server"]
           and reuse["status"] == ["done"],
           f"zamba2 reused slot vs fresh servers: {reuse}")
-    check_graph_rows(cfg.name, graph, captured_server)
+    return row
+
+
+# -- phases 15-17: the prefix families and MLA --------------------------------
+
+def phase_musicgen_audio(dev):
+    """musicgen-large at full width and depth (48 layers, d 2048, MHA
+    32/32 heads of 64, d_ff 8192, vocab 2048, prefix 64), random weights
+    from a seed: lm_prefills (T = 2112: a ragged last key tile, the prefix
+    on the key axis), the fp32 handoff, a bf16 decode eager and captured,
+    BatchedServer (served from tokens alone, as the reference's server
+    serves a prefix family), TrainConfig's train steps on plain attention
+    (on the phase's own params, which they train) and FedDCL's federated
+    rounds from the trained params with bf16 moments. Returns the row."""
+    cfg = MUSICGEN
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    p16 = bf16_copy(p32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cache_len = cfg.prefix_len + MUSICGEN_S + DECODE_ROOM
+    prefill, (logits, state, nxt) = lm_prefills(
+        cfg, p32, p16, MUSICGEN_B, MUSICGEN_S, cache_len, 23, dev)
+    handoff = lm_handoff(cfg, p32, MUSICGEN_S, cache_len, 24, dev)
+    decode = lm_decode(cfg, p16, logits, state, nxt, dev)
+    del logits, state, p16
+    torch.cuda.empty_cache()
+    decode["server_fp32"] = lm_server(cfg, p32, dev)
+    train = lm_train(cfg, p32, dev, MUSICGEN_TRAIN_B, MUSICGEN_TRAIN_S,
+                     in_place=True)
+    fed = lm_federated(cfg, p32, dev, MUSICGEN_FED_B, MUSICGEN_TRAIN_S,
+                       MUSICGEN_FED_ROUNDS, opt_state_dtype="bfloat16",
+                       release=True)
+    del p32
+    torch.cuda.empty_cache()
+    row = {"phase": "musicgen_audio", "arch": cfg.name,
+           "params": cfg.param_count(), "layers": cfg.num_layers,
+           "init_s": init_s, "prefill": prefill, "handoff_fp32": handoff,
+           "decode": decode, "train": train, "federated": fed}
+    emit(row)
+    check_prefills(cfg.name, prefill, cfg.num_layers)
+    check(prefill["next_pos"] == [cfg.prefix_len + MUSICGEN_S],
+          f"musicgen next position {prefill['next_pos']}")
+    check(handoff["logits_finite"]
+          and handoff["decode_vs_forward_logits_rel"] <= LM_TOL,
+          f"musicgen fp32 prefill(S-1) + decode vs forward: {handoff}")
+    check_decode(cfg.name, decode)
+    check_server(cfg.name, decode["server_fp32"])
+    return row
+
+
+def phase_chameleon_vlm(dev):
+    """chameleon-34b at full width (d 8192, GQA 64/8 heads of 128 with
+    qk-norm, d_ff 22016, vocab 65536, prefix 256), depth cut to 8 layers,
+    random weights from a seed: lm_prefills (T = 2304, hd 128 at GQA 8:1),
+    the fp32 handoff, a bf16 decode at B = 2 eager and captured. Returns
+    the row."""
+    cfg = CHAMELEON
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    p16 = bf16_copy(p32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cache_len = cfg.prefix_len + CHAMELEON_S + DECODE_ROOM
+    prefill, (logits, state, nxt) = lm_prefills(
+        cfg, p32, p16, CHAMELEON_B, CHAMELEON_S, cache_len, 31, dev)
+    handoff = lm_handoff(cfg, p32, CHAMELEON_S, cache_len, 32, dev)
+    del p32
+    torch.cuda.empty_cache()
+    decode = lm_decode(cfg, p16, logits, state, nxt, dev)
+    del logits, state, p16
+    torch.cuda.empty_cache()
+    row = {"phase": "chameleon_vlm", "arch": cfg.name,
+           "params": cfg.param_count(), "layers": cfg.num_layers,
+           "layers_published": ARCHS["chameleon-34b"].num_layers,
+           "qk_norm": cfg.qk_norm, "init_s": init_s, "prefill": prefill,
+           "handoff_fp32": handoff, "decode": decode}
+    emit(row)
+    check_prefills(cfg.name, prefill, cfg.num_layers)
+    check(prefill["next_pos"] == [cfg.prefix_len + CHAMELEON_S],
+          f"chameleon next position {prefill['next_pos']}")
+    check(handoff["logits_finite"]
+          and handoff["decode_vs_forward_logits_rel"] <= LM_TOL,
+          f"chameleon fp32 prefill(S-1) + decode vs forward: {handoff}")
+    check_decode(cfg.name, decode)
+    return row
+
+
+def phase_deepseek_mla(dev):
+    """deepseek-v3 at full width (d 7168, 128 heads; MLA ranks q 1536 /
+    kv 512, nope / rope / v 128 / 64 / 128; d_ff 18432, experts of 2048
+    top-8 with the sigmoid router and one shared expert; MTP depth 1;
+    vocab 129,280), cut to 2 layers and 32 experts, random weights from a
+    seed: a bf16 prefill (no flash launch: MLA's expanded form takes
+    ``sdpa``, as the reference's does), a bf16 decode on the latent cache
+    eager and captured, the fp32 handoff (the absorbed decode against the
+    expanded forward, at a capacity where the forward drops no pair: the
+    gspmd dispatch takes its capacity from each call's token count, so at
+    1.25 the 2048-token forward may drop pairs the one-token decode
+    keeps, the reference's behaviour), and TrainConfig's train steps with
+    MTP, bf16 moments. Returns the row."""
+    cfg = DEEPSEEK
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    p32 = bb.init_params(cfg, gen, torch.float32, device=dev)
+    p16 = bf16_copy(p32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cache_len = DEEPSEEK_S + DECODE_ROOM
+    batch = {"tokens": random_tokens(41, (DEEPSEEK_B, DEEPSEEK_S),
+                                     cfg.vocab_size, dev)}
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len, device=dev)
+    fa_kernel.reset_launches()
+    logits, state, nxt = prefill_step(p16, batch)
+    torch.cuda.synchronize()
+    launches = dict(fa_kernel.route_launches)
+    prefill_s = wall_s(lambda: prefill_step(p16, batch), reps=3)
+    _, per_kernel, kernels, _ = profile_device(
+        lambda: prefill_step(p16, batch))
+    dev_s = sum(per_kernel.values())
+    m = cfg.mla
+    prefill = {"batch": DEEPSEEK_B, "seq": DEEPSEEK_S, "cache_len": cache_len,
+               "flash_launches": launches, "prefill_s": prefill_s,
+               "prefill_tokens_per_s": DEEPSEEK_B * DEEPSEEK_S / prefill_s,
+               "profiled_device_s": dev_s, "kernels": kernels,
+               "top_kernels_s": sorted(per_kernel.items(),
+                                       key=lambda kv: -kv[1])[:6],
+               "latent_cache_numbers_per_position": m.kv_lora_rank
+                                                    + m.qk_rope_head_dim,
+               "kv_cache_numbers_per_position_expanded":
+                   2 * cfg.num_heads * m.v_head_dim,
+               "state_leaves": {part: sorted(state[part]) for part in state},
+               "logits_finite": bool(torch.isfinite(logits).all())}
+    mo = cfg.moe
+    no_drop = cfg.with_overrides(moe=replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    handoff = lm_handoff(no_drop, p32, DEEPSEEK_S, cache_len, 42, dev)
+    handoff["capacity_factor"] = no_drop.moe.capacity_factor
+    decode = lm_decode(cfg, p16, logits, state, nxt, dev)
+    del logits, state, p16
+    torch.cuda.empty_cache()
+    train = lm_train(cfg, p32, dev, DEEPSEEK_TRAIN_B, DEEPSEEK_TRAIN_S,
+                     steps=DEEPSEEK_TRAIN_STEPS, in_place=True,
+                     opt_state_dtype="bfloat16")
+    del p32
+    torch.cuda.empty_cache()
+    row = {"phase": "deepseek_mla", "arch": cfg.name,
+           "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
+           "cut": {"layers": [cfg.num_layers,
+                              ARCHS["deepseek-v3-671b"].num_layers],
+                   "experts": [mo.num_experts,
+                               ARCHS["deepseek-v3-671b"].moe.num_experts]},
+           "init_s": init_s, "prefill": prefill, "handoff_fp32": handoff,
+           "decode": decode, "train": train}
+    emit(row)
+    check(sum(launches.values()) == 0,
+          f"deepseek MLA prefill launched flash: {launches}")
+    check(prefill["logits_finite"], "deepseek bf16 prefill logits")
+    check(prefill["state_leaves"] == {
+        "dense_cache": ["ckv", "krope", "pos"],
+        "cache": ["ckv", "krope", "pos"]},
+          f"deepseek decode state {prefill['state_leaves']}")
+    check(handoff["logits_finite"]
+          and handoff["decode_vs_forward_logits_rel"] <= LM_TOL,
+          f"deepseek fp32 prefill(S-1) + absorbed decode vs forward: "
+          f"{handoff}")
+    check_decode(cfg.name, decode)
+    check(all("mtp" in mm for mm in train["metrics"]),
+          "deepseek train metrics without the MTP loss")
     return row
 
 
@@ -2983,6 +3237,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     zamba_row = phase_zamba2_hybrid(dev)
     torch.cuda.empty_cache()
+    musicgen_row = phase_musicgen_audio(dev)
+    torch.cuda.empty_cache()
+    chameleon_row = phase_chameleon_vlm(dev)
+    torch.cuda.empty_cache()
+    phase_deepseek_mla(dev)
+    torch.cuda.empty_cache()
     wkv_rows = phase_wkv6_check(dev, peak)
     train_row, rwkv_params = phase_rwkv6_train(dev, wkv_rows[0])
     rwkv_serve_row = phase_rwkv6_serve(dev, rwkv_params)
@@ -3000,20 +3260,26 @@ def main() -> int:
         return sum(n * r[key] for n, r in zip(MAIN_COUNTS, main_rows))
 
     # the bf16 flash kernel's main paths: the bf16 prefills of llama3.2-1b
-    # (one launch a layer), granite-moe-1b (one a layer) and zamba2-1.2b
-    # (one a shared application), each at its FLASH_SHAPES row; the fp32
-    # one's: the gemma2-2b fp32 prefill, half its layers local and half
-    # global, and granite's and zamba2's fp32 prefills
+    # (one launch a layer), granite-moe-1b (one a layer), zamba2-1.2b
+    # (one a shared application), musicgen-large and chameleon-34b (one a
+    # layer), each at its FLASH_SHAPES row; the fp32 one's: the gemma2-2b
+    # fp32 prefill, half its layers local and half global, and granite's,
+    # zamba2's, musicgen's and chameleon's fp32 prefills
     flash = {(r["shape"], r["dtype"]): r for r in flash_rows}
     granite_pf = granite_row["prefill"]
     zamba_pf = zamba_row["prefill"]
+    prefix_pfs = [("musicgen-large", musicgen_row["prefill"]),
+                  ("chameleon-34b", chameleon_row["prefill"])]
     bf16_paths = [
         (flash[("llama3.2-1b prefill", "bfloat16")],
          prefill_row["bf16"]["flash_launches"]),
         (flash[("granite-moe-1b prefill", "bfloat16")],
          granite_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE]),
         (flash[("zamba2-1.2b prefill", "bfloat16")],
-         zamba_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE])]
+         zamba_pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE])] + [
+        (flash[(f"{name} prefill", "bfloat16")],
+         pf["bf16"]["flash_launches"][fa_kernel.BF16_ROUTE])
+        for name, pf in prefix_pfs]
     n_fa = sum(n for _, n in bf16_paths)
 
     def per_bf16(key):
@@ -3025,7 +3291,10 @@ def main() -> int:
         (flash[("granite-moe-1b prefill", "float32")],
          granite_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE]),
         (flash[("zamba2-1.2b prefill", "float32")],
-         zamba_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE])]
+         zamba_pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE])] + [
+        (flash[(f"{name} prefill", "float32")],
+         pf["fp32"]["flash_launches"][fa_kernel.F32_ROUTE])
+        for name, pf in prefix_pfs]
     n_f32 = sum(n for _, n in f32_paths)
 
     def per_f32(key):
@@ -3077,7 +3346,11 @@ def main() -> int:
                              "granite-moe-1b bf16 prefill":
                                  bf16_paths[1][1],
                              "zamba2-1.2b bf16 prefill":
-                                 bf16_paths[2][1]}}, {
+                                 bf16_paths[2][1],
+                             "musicgen-large bf16 prefill":
+                                 bf16_paths[3][1],
+                             "chameleon-34b bf16 prefill":
+                                 bf16_paths[4][1]}}, {
         "name": "flash_attention_fwd_f32_3xtf32", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
@@ -3096,7 +3369,11 @@ def main() -> int:
                              "granite-moe-1b fp32 prefill":
                                  f32_paths[2][1],
                              "zamba2-1.2b fp32 prefill":
-                                 f32_paths[3][1]}}, {
+                                 f32_paths[3][1],
+                             "musicgen-large fp32 prefill":
+                                 f32_paths[4][1],
+                             "chameleon-34b fp32 prefill":
+                                 f32_paths[5][1]}}, {
         "name": "wkv6_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:70",

@@ -116,7 +116,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Parameter count of the port's own init, counted on the `meta`
-        device (no memory); raises for the families not ported yet."""
+        device (no memory)."""
         from repro_torch.models.backbone import count_params_analytic
 
         return count_params_analytic(self)

@@ -22,9 +22,16 @@ and a recurrence does not. A KV cache is left as it is: zeroing its
 ``pos`` would turn the -1 "empty" marks into position 0 and show every
 stale key.
 
+A modality-prefix family (musicgen, chameleon) is served from its tokens
+alone, as the reference's server serves it: ``_prefill_slot`` decodes the
+prompt from position 0 and no request carries a prefix. MLA (deepseek)
+decodes against its latent cache.
+
     python -m repro_torch.launch.serve --arch llama3.2-1b [--device cpu]
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m [--device cpu]
     python -m repro_torch.launch.serve --arch zamba2-1.2b [--device cpu]
+    python -m repro_torch.launch.serve --arch musicgen-large [--device cpu]
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b [--device cpu]
 """
 from __future__ import annotations
 

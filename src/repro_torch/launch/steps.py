@@ -33,6 +33,10 @@ from repro_torch.tree import tree_leaves, tree_map
 OPT_PIECE = 1 << 26
 
 
+# the batch entries the train steps read
+BATCH_KEYS = ("tokens", "labels", "prefix_embeds")
+
+
 def _on(x, dev: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(dev)
@@ -43,12 +47,19 @@ def make_prefill_step(cfg: ModelConfig, *, cache_len: int,
                       compute_dtype=torch.bfloat16,
                       cache_dtype=torch.bfloat16, use_kernels: bool = True,
                       device: DeviceLike = None) -> Callable:
+    """``prefill_step(params, batch) -> (logits, state, next_pos)`` over
+    `batch`'s tokens, after its ``prefix_embeds`` where it has them (a
+    prefix family: size `cache_len` for P + S + the decode steps)."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        prefix = batch.get("prefix_embeds")
         return bb.prefill(params, _on(batch["tokens"], dev), cfg,
-                          cache_len=cache_len, compute_dtype=compute_dtype,
+                          cache_len=cache_len,
+                          prefix_embeds=None if prefix is None
+                          else _on(prefix, dev),
+                          compute_dtype=compute_dtype,
                           cache_dtype=cache_dtype, use_kernels=use_kernels)
 
     return prefill_step
@@ -152,8 +163,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
 
     ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
     with ``loss_fn``'s metrics (``ce`` and ``loss``; for the moe family
-    also ``moe_aux``, and ``mtp`` with an MTP head) and ``grad_norm``. It
-    updates `params`
+    also ``moe_aux``, and ``mtp`` with an MTP head) and ``grad_norm``.
+    `batch` holds ``tokens`` and ``labels``, and ``prefix_embeds`` for a
+    prefix family (NumPy or tensors). It updates `params`
     and `opt_state` IN PLACE and returns them (the reference's jitted step
     donates them): the update runs piece by piece (``OPT_PIECE``), so a
     full-width step holds one copy of the params, gradients and moments
@@ -169,7 +181,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
         live = [p.detach().requires_grad_() for p in leaves]
         it = iter(live)
         tree = tree_map(lambda _: next(it), params)
-        b = {k: _on(batch[k], dev) for k in ("tokens", "labels")}
+        b = {k: _on(batch[k], dev) for k in BATCH_KEYS if k in batch}
         loss, metrics = bb.loss_fn(tree, b, cfg, use_kernels=use_kernels,
                                    remat=tc.remat,
                                    compute_dtype=compute_dtype)
@@ -248,7 +260,8 @@ def make_federated_local_step(cfg: ModelConfig, tc: TrainConfig, *,
     cross-silo communication. ``local_step(silo_params, silo_opt_state,
     batch) -> (silo_params, silo_opt_state, metrics)``: params and state
     lead with the silo dim d and are updated in place; `batch` leads with
-    (d, local_batch, ...); each metric comes back with shape (d,)."""
+    (d, local_batch, ...), every entry (``prefix_embeds`` too) sliced per
+    silo; each metric comes back with shape (d,)."""
     train_step, opt = make_train_step(cfg, tc, use_kernels=use_kernels,
                                       device=device)
 

@@ -10,7 +10,11 @@ Training runs a kernel only where it has a gradient: the WKV6 kernels do
 hybrid model trains on the plain attention path, as the reference's
 ``train`` does (Mamba2's SSD scan has no kernel in either package). A
 moe model's loss adds its load-balance term (and, with an MTP head,
-deepseek's MTP loss); both come back as metrics beside the loss.
+deepseek's MTP loss); both come back as metrics beside the loss. A
+modality-prefix family (musicgen, chameleon) gets a fresh
+``synthetic_prefix`` every step, in both branches, from a generator seeded
+from (seed, step): the role of the reference's ``fold_in(key, step)``,
+whose draws torch cannot reproduce.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
@@ -18,6 +22,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --reduced --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --reduced --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large \\
       --reduced --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
       --reduced --steps 11 --silos 2 --local-steps 2 \\
@@ -41,7 +47,20 @@ from repro_torch.data.tokens import TokenStream, silo_batches
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import backbone as bb
+from repro_torch.models.modality import synthetic_prefix
 from repro_torch.tree import tree_map
+
+
+def step_prefix(cfg, seed: int, step: int, shape, dev: torch.device
+                ) -> torch.Tensor:
+    """A prefix family's prefix embeddings for training step `step`:
+    ``synthetic_prefix`` of prod(shape) rows, reshaped to shape + (P, d),
+    drawn from a generator of `dev` seeded from (seed, step) alone."""
+    sub = int(np.random.SeedSequence((seed, step)).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+    gen = torch.Generator(device=dev).manual_seed(sub)
+    pe = synthetic_prefix(gen, cfg, int(np.prod(shape)), device=dev)
+    return pe.reshape(tuple(shape) + pe.shape[1:])
 
 
 def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
@@ -94,11 +113,17 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
         so = steps_lib.silo_opt_init(opt, sp)
 
         def stacked_batches(step0, h):
-            """h consecutive per-silo batches, stacked with leading dim h."""
+            """h consecutive per-silo batches, stacked with leading dim h
+            (a prefix family's prefix (h, silos, batch/silos, P, d))."""
             nbs = [silo_batches(cfg.vocab_size, seq, batch // silos, silos,
                                 step0 + i, seed=seed, non_iid=non_iid)
                    for i in range(h)]
-            return {k: np.stack([nb[k] for nb in nbs]) for k in nbs[0]}
+            b = {k: np.stack([nb[k] for nb in nbs]) for k in nbs[0]}
+            if cfg.prefix_frontend:
+                b["prefix_embeds"] = torch.stack([
+                    step_prefix(cfg, seed, step0 + i, (silos, batch // silos),
+                                dev) for i in range(h)])
+            return b
 
         def log_round(step0, metrics):
             for i in range(int(metrics["loss"].shape[0])):
@@ -111,7 +136,10 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
 
             def multiround_batches(step0, r, h):
                 bs = [stacked_batches(step0 + i * h, h) for i in range(r)]
-                return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+                stack = lambda xs: (torch.stack(xs)
+                                    if isinstance(xs[0], torch.Tensor)
+                                    else np.stack(xs))
+                return {k: stack([b[k] for b in bs]) for k in bs[0]}
 
         n_rounds = steps // local_steps
         rnd = 0
@@ -142,8 +170,11 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
         opt_state = opt.init(params)
         stream = TokenStream(cfg.vocab_size, seq, batch, seed=seed)
         for step in range(steps):
-            params, opt_state, metrics = step_fn(params, opt_state,
-                                                 stream.batch(step))
+            b = stream.batch(step)
+            if cfg.prefix_frontend:
+                b["prefix_embeds"] = step_prefix(cfg, seed, step, (batch,),
+                                                 dev)
+            params, opt_state, metrics = step_fn(params, opt_state, b)
             log(step, metrics["loss"])
 
     if checkpoint_path:

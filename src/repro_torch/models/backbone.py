@@ -1,13 +1,19 @@
-"""Backbone LM (counterpart of ``repro.models.backbone``), four families:
+"""Backbone LM (counterpart of ``repro.models.backbone``), every family:
 
-  dense : a uniform [attn + SwiGLU] stack (GQA, sliding window, softcap,
-          qk-norm per config), with forward, loss, prefill and cached
-          single-token decode;
+  dense / audio / vlm : a uniform [attn + SwiGLU] stack (GQA, sliding
+          window, softcap, qk-norm per config), with forward, loss,
+          prefill and cached single-token decode; audio (musicgen) and
+          vlm (chameleon) take a modality prefix, below;
   moe   : [attn + MoE] layers, after `first_k_dense` leading dense layers
-          (their own stack, ``dense_layers``, and their own KV cache,
+          (their own stack, ``dense_layers``, and their own cache,
           ``dense_cache``), with the MoE load-balance loss in ``loss_fn``
           and, where ``mtp_depth`` asks, deepseek's multi-token-prediction
-          head; the same forward, loss, prefill and decode as dense;
+          head; the same forward, loss, prefill and decode as dense. With
+          ``mla`` (deepseek) every attention block, the MTP head's
+          included, is multi-head latent attention: the expanded form in
+          forward and prefill, whose caches hold the latent ``ckv`` and
+          the rope key ``krope`` a position, and the absorbed-weight
+          decode against them;
   ssm   : rwkv6's [time-mix + channel-mix] stack, with forward, loss,
           prefill (which also returns the recurrent state) and
           single-token decode from that state;
@@ -28,12 +34,17 @@ body): its activations are recomputed in the backward pass, a MoE layer's
 routing included (the same deterministic top-k and stable sort); a
 hybrid model checkpoints one round at a time (its Mamba2 blocks and the
 shared block, the blocks inside not checkpointed again) and each trailing
-block alone, as the reference does. MLA attention and the modality
-prefixes are not ported yet and raise NotImplementedError naming
-ROADMAP.md.
+block alone, as the reference does.
+
+A modality prefix (``prefix_frontend``: precomputed embeddings (B, P, d)
+from a frozen encoder, ``models.modality`` draws stand-ins) is RMS-normed
+by ``ln_prefix`` in the embedding's dtype and put in front of the token
+embeddings: positions run 0..P+S-1, the loss masks the prefix out, and
+prefill caches its entries (next position P + S).
 
 ``use_kernels`` (the reference's ``use_pallas``) sends the attention of
-forward and prefill through the flash-attention kernel, and rwkv6's
+forward and prefill through the flash-attention kernel (MLA's expanded
+form takes ``sdpa`` whatever it says, as the reference's does), and rwkv6's
 recurrence in forward and loss through the WKV6 kernel; False runs the
 plain paths (``sdpa``, ``wkv6_chunked``). rwkv6's prefill needs the final
 recurrent state, which the WKV6 kernel does not return (ROADMAP.md, Queue 2
@@ -60,22 +71,6 @@ from repro_torch.models import layers as L
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
-
-
-def _check_ported(cfg: ModelConfig, *, shapes_only: bool = False) -> None:
-    """Raise for what the port does not run yet: the modality-prefix
-    families and MLA attention. `shapes_only` (the parameter count) lets
-    MLA through: its init is ported."""
-    if (cfg.family not in ("dense", "ssm", "moe", "hybrid")
-            or cfg.prefix_frontend):
-        what = f"family {cfg.family!r}"
-    elif cfg.mla is not None and not shapes_only:
-        what = "MLA attention"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ported: the dense, moe, "
-        f"ssm and hybrid families, without MLA). See ROADMAP.md, Queue 1")
 
 
 # ===========================================================================
@@ -134,7 +129,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     `generator` (a generator of that device; None on the `meta` device,
     which only shapes). Torch cannot reproduce ``jax.random``: parity runs
     load the reference's weights (``weights.lm_params_from_numpy``)."""
-    _check_ported(cfg)
     return _init_tree(cfg, generator, param_dtype, resolve_device(device))
 
 
@@ -150,6 +144,8 @@ def _init_tree(cfg: ModelConfig, generator: Optional[torch.Generator],
         params["lm_head"] = L._dense_init(generator,
                                           (cfg.d_model, cfg.vocab_size),
                                           cfg.d_model, param_dtype, dev)
+    if cfg.prefix_frontend:
+        params["ln_prefix"] = L.init_rmsnorm(cfg.d_model, param_dtype, dev)
     if cfg.family == "ssm":
         params["layers"] = _init_rwkv_block(generator, cfg, param_dtype, dev,
                                             lead=(cfg.num_layers,))
@@ -211,28 +207,45 @@ def _local_flags(cfg: ModelConfig, n: int) -> List[bool]:
     return [False] * n
 
 
-def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    """-> (x (B, S, d), positions (B, S), loss_mask (B, S))."""
-    _check_ported(cfg)
+def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                 prefix_embeds: Optional[torch.Tensor] = None):
+    """-> (x (B, P+S, d), positions (B, P+S), loss_mask (B, P+S)), P = 0
+    without a prefix front end (`prefix_embeds` is then ignored, as in the
+    reference); with one, `prefix_embeds` (B, P, d) is required."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     loss_mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    if cfg.prefix_frontend:
+        if prefix_embeds is None:
+            raise ValueError(f"{cfg.name} requires prefix_embeds")
+        pe = L.apply_rmsnorm(params["ln_prefix"],
+                             prefix_embeds.to(device=x.device,
+                                              dtype=x.dtype), cfg.norm_eps)
+        x = torch.cat([pe, x], dim=1)
+        loss_mask = torch.cat([torch.zeros((B, pe.shape[1]), dtype=torch.bool,
+                                           device=x.device), loss_mask], dim=1)
+    T = x.shape[1]
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device).expand(B, T)
     return x, positions, loss_mask
 
 
 def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                        positions, is_local: bool, use_kernels: bool,
                        moe_layer: bool = False, return_kv: bool = False):
-    """-> (x, aux) or, with return_kv, (x, aux, (k, v)): aux is the MoE
-    layer's load-balance loss, None for a dense layer."""
+    """-> (x, aux) or, with return_kv, (x, aux, the cache entries: (k, v),
+    or MLA's (ckv, krope)): aux is the MoE layer's load-balance loss, None
+    for a dense layer."""
     h = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
-    attn, kv = L.multi_head_attention(lp["attn"], h, cfg, positions=positions,
-                                      is_local=is_local,
-                                      use_kernels=use_kernels, return_kv=True)
+    if cfg.mla is not None:
+        attn, kv = L.mla_attention(lp["attn"], h, cfg, positions=positions,
+                                   is_local=is_local, return_kv=True)
+    else:
+        attn, kv = L.multi_head_attention(
+            lp["attn"], h, cfg, positions=positions, is_local=is_local,
+            use_kernels=use_kernels, return_kv=True)
     if cfg.post_block_norm:
         attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
     x = x + attn
@@ -289,12 +302,14 @@ def _n_stacked(stacked: Params) -> int:
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
             use_kernels: bool = True, remat: bool = True,
             compute_dtype=torch.bfloat16, return_logits: bool = True):
     """-> (logits (B, T, V) fp32 | None, hidden (B, T, d),
     {"moe_aux": the moe layers' summed aux loss (0 for the other
-    families), "loss_mask": (B, T)})."""
-    x, positions, loss_mask = embed_inputs(params, tokens, cfg)
+    families), "loss_mask": (B, T)}); T = P + S with a prefix."""
+    x, positions, loss_mask = embed_inputs(params, tokens, cfg,
+                                           prefix_embeds=prefix_embeds)
     x = x.to(compute_dtype)
     remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -408,16 +423,21 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, use_kernels: bool = True, remat: bool = True,
             compute_dtype=torch.bfloat16, mtp_coef: float = 0.3,
             aux_coef: float = 0.01):
-    """batch: tokens (B,S), labels (B,S) (next token, -1 = ignore) ->
-    (loss, metrics): "ce" and "loss", and for the moe family "moe_aux"
-    (added as ``aux_coef`` x it, the reference's keyword default:
+    """batch: tokens (B,S), labels (B,S) (next token, -1 = ignore), and
+    prefix_embeds (B,P,d) for a prefix family (its positions carry no
+    label) -> (loss, metrics): "ce" and "loss", and for the moe family
+    "moe_aux" (added as ``aux_coef`` x it, the reference's keyword default:
     ``MoEConfig.router_aux_coef`` is read nowhere, as in the reference)
     and, with an MTP head, "mtp" (added as ``mtp_coef`` x it)."""
     tokens, labels = batch["tokens"], batch["labels"]
-    _, hidden, aux = forward(params, tokens, cfg, use_kernels=use_kernels,
-                             remat=remat, compute_dtype=compute_dtype,
+    _, hidden, aux = forward(params, tokens, cfg,
+                             prefix_embeds=batch.get("prefix_embeds"),
+                             use_kernels=use_kernels, remat=remat,
+                             compute_dtype=compute_dtype,
                              return_logits=False)
-    mask = (labels >= 0) & aux["loss_mask"]
+    P = hidden.shape[1] - tokens.shape[1]
+    hidden = hidden[:, P:]
+    mask = (labels >= 0) & aux["loss_mask"][:, P:]
     loss = chunked_xent(params, hidden, torch.clamp(labels, min=0),
                         mask.float(), cfg)
     metrics = {"ce": loss}
@@ -462,17 +482,24 @@ def _mtp_loss(params: Params, hidden: torch.Tensor, tokens: torch.Tensor,
 # prefill: full-sequence forward that also fills the decode cache
 # ===========================================================================
 
+def _entry_names(cache: Params):
+    """The per-position leaves of a ring cache: (k, v), or MLA's latent
+    (ckv, krope)."""
+    return ("ckv", "krope") if "ckv" in cache else ("k", "v")
+
+
 def _fill_cache(cache: Params, layer: int, entries, positions: torch.Tensor
                 ) -> None:
-    """Write one layer's per-position (k, v) entries (B, S, KV, hd) into the
-    ring cache, keeping the last min(S, cache_len) positions at slots
-    pos % cache_len. The reference stacks every layer's entries and fills
-    once; here each layer fills as it goes, so the stack never exists."""
-    C = cache["k"].shape[2]
+    """Write one layer's per-position entries ((k, v) (B, S, KV, hd), or
+    MLA's (ckv (B, S, r_kv), krope (B, S, rope))) into the ring cache,
+    keeping the last min(S, cache_len) positions at slots pos % cache_len.
+    The reference stacks every layer's entries and fills once; here each
+    layer fills as it goes, so the stack never exists."""
+    C = cache["pos"].shape[2]
     S = positions.shape[0]
     W = min(S, C)
     slots = (positions[S - W:] % C).long()
-    for name, ent in zip(("k", "v"), entries):
+    for name, ent in zip(_entry_names(cache), entries):
         cache[name][layer][:, slots] = ent[:, S - W:].to(cache[name].dtype)
 
 
@@ -486,12 +513,18 @@ def _entries_to_cache(cache: Params, positions: torch.Tensor) -> None:
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cache_len: int, use_kernels: bool = True,
-            compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
+            cache_len: int, prefix_embeds: Optional[torch.Tensor] = None,
+            use_kernels: bool = True, compute_dtype=torch.bfloat16,
+            cache_dtype=torch.bfloat16):
     """Process a full prompt, returning (last-position logits (B, 1, V),
-    decode state matching init_decode_state, next position (B,))."""
-    _check_ported(cfg)
-    x, positions, _ = embed_inputs(params, tokens, cfg)
+    decode state matching init_decode_state, next position (B,)).
+
+    With a prefix front end, `prefix_embeds` (B, P, d) goes in front of the
+    S tokens: the caches hold the prefix's entries too and the next
+    position is P + S, so size `cache_len` for P + S + the decode steps
+    (a ring sized for S alone wraps over the prefix)."""
+    x, positions, _ = embed_inputs(params, tokens, cfg,
+                                   prefix_embeds=prefix_embeds)
     x = x.to(compute_dtype)
     B, T = positions.shape
     kw = dict(positions=positions, use_kernels=use_kernels,
@@ -515,11 +548,12 @@ def _prefill_attn_stack(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
                         *, positions, moe_layer: bool, use_kernels: bool,
                         cache_len: int, cache_dtype):
     """The attention layers of one stack over the prompt, each filling its
-    layer of a new ring KV cache as it goes -> (x, cache)."""
+    layer of a new ring cache (KV, or MLA's latent) as it goes ->
+    (x, cache)."""
     n = _n_stacked(stacked)
     pos1d = positions[0]
-    cache = L.init_kv_cache(cfg, x.shape[0], cache_len, n, cache_dtype,
-                            x.device)
+    cache = _init_attn_cache(cfg, x.shape[0], cache_len, n, cache_dtype,
+                             x.device)
     _entries_to_cache(cache, pos1d)
     for i, (lp, flag) in enumerate(zip(_layers(stacked),
                                        _local_flags(cfg, n))):
@@ -600,17 +634,24 @@ def _prefill_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # decode (single token, cached)
 # ===========================================================================
 
+def _init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int, n: int,
+                     dtype, device) -> Params:
+    """An attention stack's ring cache: MLA's latent one, or KV."""
+    init = L.init_kv_cache if cfg.mla is None else L.init_mla_cache
+    return init(cfg, batch, cache_len, n, dtype, device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=torch.bfloat16, *,
                       device: DeviceLike = None) -> Params:
-    """State tree for serve_step: the KV cache (dense and moe, which also
-    has a ``dense_cache`` for its `first_k_dense` leading layers;
+    """State tree for serve_step: the KV cache (dense, audio, vlm and moe,
+    which also has a ``dense_cache`` for its `first_k_dense` leading
+    layers; with MLA both are latent caches, ``ckv`` / ``krope`` / ``pos``;
     cache_len should be min(seq_len, window) for pure sliding-window
     configs), rwkv6's fp32 recurrent state and token-shift states (ssm;
     no cache_len or dtype), or the hybrid's fp32 Mamba2 states (``mamba``,
     ``mamba_tail`` where there are trailing blocks) and the shared block's
     KV cache, one layer per shared application (``shared_cache``)."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "hybrid":
         rounds, trailing = _hybrid_split(cfg)
@@ -631,11 +672,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                 "x_prev_ffn": zeros(cfg.d_model)}
     state: Params = {}
     if cfg.first_k_dense:
-        state["dense_cache"] = L.init_kv_cache(cfg, batch, cache_len,
-                                               cfg.first_k_dense, dtype, dev)
-    state["cache"] = L.init_kv_cache(cfg, batch, cache_len,
-                                     cfg.num_layers - cfg.first_k_dense,
-                                     dtype, dev)
+        state["dense_cache"] = _init_attn_cache(cfg, batch, cache_len,
+                                                cfg.first_k_dense, dtype, dev)
+    state["cache"] = _init_attn_cache(cfg, batch, cache_len,
+                                      cfg.num_layers - cfg.first_k_dense,
+                                      dtype, dev)
     return state
 
 
@@ -646,7 +687,6 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     Returns (logits (B, 1, V) fp32, state). The state is updated in place,
     so the returned state is `state` itself (the reference returns an
     updated copy)."""
-    _check_ported(cfg)
     x = params["embed"][tokens[:, 0].long()][:, None]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
@@ -684,11 +724,19 @@ def _decode_attn_block(lp: Params, cache: Params, i: int, x: torch.Tensor,
                        cur_pos: torch.Tensor, cfg: ModelConfig, *,
                        is_local: bool, moe_layer: bool = False):
     """One attention block on one token, against layer `i` of `cache`,
-    which it writes in place."""
+    which it writes in place (MLA: the absorbed decode on the latent
+    cache)."""
     hn = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
-    attn = L.decode_attention(
-        lp["attn"], hn, cfg, cache_k=cache["k"][i], cache_v=cache["v"][i],
-        cache_pos=cache["pos"][i], cur_pos=cur_pos, is_local=is_local)
+    if cfg.mla is not None:
+        attn = L.mla_decode(
+            lp["attn"], hn, cfg, cache_ckv=cache["ckv"][i],
+            cache_krope=cache["krope"][i], cache_pos=cache["pos"][i],
+            cur_pos=cur_pos, is_local=is_local)
+    else:
+        attn = L.decode_attention(
+            lp["attn"], hn, cfg, cache_k=cache["k"][i],
+            cache_v=cache["v"][i], cache_pos=cache["pos"][i],
+            cur_pos=cur_pos, is_local=is_local)
     if cfg.post_block_norm:
         attn = L.apply_rmsnorm(lp["ln_post_attn"], attn, cfg.norm_eps)
     x = x + attn
@@ -753,11 +801,10 @@ def _decode_rwkv_stack(stacked: Params, state: Params, x: torch.Tensor,
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False,
                           include_embed: bool = True) -> int:
     """Parameters of the init's tree, shaped on the `meta` device (no
-    memory, no draws); MLA's are counted, its attention unported. With
-    `include_embed` False the embedding (and an untied head) is left out;
-    with `active_only` the experts a token does not reach (E - k of them
-    in every moe layer) are, as the reference counts them."""
-    _check_ported(cfg, shapes_only=True)
+    memory, no draws). With `include_embed` False the embedding (and an
+    untied head) is left out; with `active_only` the experts a token does
+    not reach (E - k of them in every moe layer) are, as the reference
+    counts them."""
     shapes = _init_tree(cfg, None, torch.float32, torch.device("meta"))
     total = sum(t.numel() for t in tree_leaves(shapes))
     if not include_embed:

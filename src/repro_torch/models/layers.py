@@ -1,11 +1,12 @@
-"""Layer library, the subset ported so far: RMSNorm, RoPE, attention (GQA /
-sliding window / softcap / qk-norm) for prefill and for cached decode, the
-SwiGLU MLP, the mixture of experts (both routers, shared experts, the
-dense and the capacity-based gspmd dispatch, the load-balance loss), MLA's
-init (its attention is not ported), RWKV6's time mix and channel mix
-(full-sequence and single-token decode), the chunk-level linear
-recurrence they and Mamba2 need, and Mamba2 (the causal conv, the chunked
-SSD scan, full-sequence and single-token decode) (counterpart of
+"""Layer library: RMSNorm, RoPE, attention (GQA / sliding window / softcap
+/ qk-norm) for prefill and for cached decode, DeepSeek's multi-head latent
+attention (the expanded form for prefill, the absorbed-weight decode
+against the latent cache), the SwiGLU MLP, the mixture of experts (both
+routers, shared experts, the dense and the capacity-based gspmd dispatch,
+the load-balance loss), RWKV6's time mix and channel mix (full-sequence
+and single-token decode), the chunk-level linear recurrence they and
+Mamba2 need, and Mamba2 (the causal conv, the chunked SSD scan,
+full-sequence and single-token decode) (counterpart of
 ``repro.models.layers``).
 
 Functional style, as the reference: ``init_*`` builds a dict of tensors,
@@ -240,9 +241,10 @@ def sdpa_reference(q, k, v, *, q_pos, k_pos, is_local, window,
 def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
              lead: Shape = ()) -> Params:
     """DeepSeek's multi-head latent attention params, in the reference's
-    tree. Only the init is ported: it shapes the parameter count
-    (``backbone.count_params_analytic``); MLA's attention and decode are
-    not, and a config with ``mla`` raises at ``backbone.init_params``."""
+    tree: the query's down / up projections ``w_dq`` (d, r_q), ``w_uq``
+    (r_q, H, nope + rope); the joint latent and shared rope key ``w_dkv``
+    (d, r_kv + rope); the latent's up projections ``w_uk`` (r_kv, H,
+    nope), ``w_uv`` (r_kv, H, v); ``wo`` (H, v, d)."""
     m = cfg.mla
     d, H = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -261,6 +263,55 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
         "wo": _dense_init(gen, lead + (H, m.v_head_dim, d), H * m.v_head_dim,
                           dtype, device),
     }
+
+
+def _mla_query(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, d) -> (q_nope (B, S, H, nope), q_rope (B, S, H, rope)),
+    before RoPE."""
+    m = cfg.mla
+    cq = apply_rmsnorm(p["q_norm"], x @ p["w_dq"].to(x.dtype), cfg.norm_eps)
+    q = _heads_in(cq, p["w_uq"])
+    return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+
+
+def _mla_latent(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, d) -> (the normed latent ckv (B, S, r_kv), the shared
+    rope key (B, S, rope), before RoPE)."""
+    r = cfg.mla.kv_lora_rank
+    full = x @ p["w_dkv"].to(x.dtype)
+    return (apply_rmsnorm(p["kv_norm"], full[..., :r], cfg.norm_eps),
+            full[..., r:])
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  positions: torch.Tensor, is_local: bool = False,
+                  return_kv: bool = False):
+    """Forward / prefill MLA in the expanded form, as the reference
+    computes it. x: (B, S, d); positions: (B, S). Every head's key is its
+    nope part (from the latent) with the one rope key broadcast across
+    heads and concatenated, so ``sdpa`` scales by 1/sqrt(nope + rope).
+    With return_kv, also returns the latent cache entries (ckv, k_rope),
+    k_rope rope'd."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_query(p, x, cfg)
+    ckv, k_rope = _mla_latent(p, x, cfg)
+    k_nope = _heads_in(ckv, p["w_uk"])
+    v = _heads_in(ckv, p["w_uv"])
+    sin, cos = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    sin_b, cos_b = _bcast_rope(sin, cos)
+    q_rope = apply_rope(q_rope, sin_b, cos_b)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin_b, cos_b)  # (B,S,1,rope)
+    q_eff = torch.cat([q_nope, q_rope], dim=-1)
+    k_eff = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
+                      dim=-1)
+    ctx = sdpa(q_eff, k_eff, v, q_pos=positions, k_pos=positions,
+               is_local=is_local, window=cfg.sliding_window, softcap=0.0)
+    out = _heads_out(ctx, p["wo"])
+    if return_kv:
+        return out, (ckv, k_rope[:, :, 0, :])
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -317,6 +368,66 @@ def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     vc = cache_v.to(q.dtype).permute(0, 2, 1, 3)                  # (B,KV,C,hd)
     ctx = torch.matmul(probs, vc).reshape(B, 1, H, hd)
     return _heads_out(ctx, p["wo"])
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   num_layers: int, dtype, device) -> Params:
+    """MLA's latent ring cache: per position the normed latent ``ckv``
+    (r_kv) and the rope'd shared key ``krope`` (rope), not H keys and
+    values."""
+    m = cfg.mla
+    lead = (num_layers, batch, cache_len)
+    return {
+        "ckv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros(lead + (m.qk_rope_head_dim,), dtype=dtype,
+                             device=device),
+        "pos": torch.full(lead, -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               cache_ckv: torch.Tensor, cache_krope: torch.Tensor,
+               cache_pos: torch.Tensor, cur_pos: torch.Tensor,
+               is_local: bool = False) -> torch.Tensor:
+    """One-token MLA decode with the absorbed weights: the query's nope
+    part is taken through ``w_uk`` into the latent space and scored against
+    the latent cache directly, and the context is taken out of it through
+    ``w_uv``. x: (B, 1, d); cache_ckv (B, C, r_kv), cache_krope (B, C,
+    rope), cache_pos (B, C); cur_pos (B,). The ring write at cur_pos % C
+    is IN PLACE (the reference returns updated copies). Returns out
+    (B, 1, d)."""
+    m = cfg.mla
+    B = x.shape[0]
+    C = cache_ckv.shape[1]
+    q_nope, q_rope = (t[:, 0] for t in _mla_query(p, x, cfg))   # (B,H,.)
+    ckv, k_rope = (t[:, 0] for t in _mla_latent(p, x, cfg))     # (B,.)
+    sin, cos = rope_angles(cur_pos[:, None], m.qk_rope_head_dim,
+                           cfg.rope_theta)                      # (B,1,half)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, None, :], sin, cos)[:, 0]
+
+    slot = (cur_pos % C).long()
+    bidx = torch.arange(B, device=x.device)
+    cache_ckv[bidx, slot] = ckv.to(cache_ckv.dtype)
+    cache_krope[bidx, slot] = k_rope.to(cache_krope.dtype)
+    cache_pos[bidx, slot] = cur_pos.to(cache_pos.dtype)
+
+    # absorb: q_eff[b,h,r] = sum_k q_nope[b,h,k] * w_uk[r,h,k]
+    q_eff = torch.einsum("bhk,rhk->bhr", q_nope, p["w_uk"].to(x.dtype))
+    lat = cache_ckv.to(x.dtype)                                  # (B,C,r)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    logits = (torch.matmul(q_eff, lat.transpose(1, 2))
+              + torch.matmul(q_rope, cache_krope.to(x.dtype).transpose(1, 2))
+              ).float() * scale                                  # (B,H,C)
+    valid = (cache_pos >= 0) & (cache_pos <= cur_pos[:, None])
+    if is_local:
+        valid = valid & (cache_pos > cur_pos[:, None] - cfg.sliding_window)
+    logits = torch.where(valid[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx = torch.matmul(probs, lat)                               # (B,H,r)
+    out_h = torch.einsum("bhr,rhk->bhk", ctx, p["w_uv"].to(x.dtype))
+    return _heads_out(out_h[:, None], p["wo"])
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,10 @@ Both packages keep the same layouts, so no transposes are needed: the MLP's
 ``{"layers": [{"w": (in, out), "b": (out,)}]}`` and the LM's stacked tree
 (``embed`` (V, d), ``layers.attn.wq`` (L, d, H, hd), ...; the hybrid's
 ``layers.mamba.w_in`` (L, d, 2·inner + 2N + H), ``conv_w`` (L, K, C) and
-its unstacked ``shared_block``). The JAX side
+its unstacked ``shared_block``; a prefix family's ``ln_prefix`` (d,);
+MLA's ``attn.w_dq`` (L, d, r_q), ``w_uq`` (L, r_q, H, nope + rope),
+``w_dkv`` (L, d, r_kv + rope), ``w_uk`` (L, r_kv, H, nope), ``w_uv``
+(L, r_kv, H, v) and ``wo`` (L, H, v, d)). The JAX side
 hands over ``jax.tree.map(np.asarray, params)`` and gets back the same tree
 of NumPy arrays from ``*_params_to_numpy``.
 """

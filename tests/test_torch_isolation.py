@@ -29,7 +29,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.flash_attention.kernel",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.models.layers", "repro_torch.models.backbone",
-            "repro_torch.models.moe_ep",
+            "repro_torch.models.moe_ep", "repro_torch.models.modality",
             "repro_torch.configs.gemma2_2b", "repro_torch.launch.steps",
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.data.tokens", "repro_torch.kernels.rwkv6.kernel",
@@ -94,7 +94,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.api import FedDCL
     from repro_torch.core import collab, federated
     from repro_torch.device import resolve_device
-    from repro_torch.models import mlp
+    from repro_torch.configs import REDUCED
+    from repro_torch.models import mlp, modality
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gen = torch.Generator().manual_seed(0)
     for call in (lambda: resolve_device(None),
@@ -102,6 +103,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: collab.DeviceBackend(),
                  lambda: collab.get_backend("device"),
                  lambda: mlp.init_mlp_params(gen, 3, (4,), 1),
+                 lambda: modality.synthetic_prefix(
+                     gen, REDUCED["musicgen-large"], 1),
                  lambda: federated.run_federated(
                      None, None, [(np.zeros((4, 3)), np.zeros((4, 1)))],
                      opt=None, rounds=1, local_epochs=1),

@@ -217,33 +217,42 @@ def test_config_registry_equals_reference(registry):
 
 
 def test_param_count_equals_reference_for_dense():
-    dense = [n for n, c in tconfigs.ARCHS.items() if c.family == "dense"]
-    assert {"llama3.2-1b", "gemma2-2b"} <= set(dense)
-    for name in dense:
-        assert (tconfigs.ARCHS[name].param_count()
-                == jconfigs.ARCHS[name].param_count()), name
+    """Every config of both registries, of every family: the port's count
+    (its init on the `meta` device, ``ln_prefix`` and MLA's leaves
+    included) equals the reference's, with and without the embedding."""
+    for registry in ("ARCHS", "REDUCED"):
+        treg, jreg = getattr(tconfigs, registry), getattr(jconfigs, registry)
+        assert {c.family for c in treg.values()} == {
+            "dense", "ssm", "moe", "hybrid", "audio", "vlm"}
+        for name in treg:
+            assert treg[name].param_count() == jreg[name].param_count(), name
+            assert (tbb.count_params_analytic(treg[name], include_embed=False)
+                    == jbb.count_params_analytic(jreg[name],
+                                                 include_embed=False)), name
     assert tconfigs.ARCHS["llama3.2-1b"].param_count() == 1_235_814_400
+    assert tconfigs.ARCHS["musicgen-large"].param_count() == 3_229_814_784
 
 
 def test_unported_families_raise():
-    """MLA (deepseek, moe) and modality-prefix configs (musicgen, audio;
-    chameleon, vlm) raise at init and on the serving path; dense, ssm
-    (rwkv6, whose prefill and decode are ported), moe without MLA
-    (granite-moe) and hybrid (zamba2) do not."""
+    """No family raises any more: every ARCHS config, the modality-prefix
+    ones (musicgen, audio; chameleon, vlm) and MLA (deepseek) included,
+    inits on the `meta` device and has a decode state: K/V caches, MLA's
+    latent ones (``ckv`` / ``krope``), rwkv6's recurrence or the hybrid's
+    Mamba2 states and shared cache."""
     archs = tconfigs.ARCHS.values()
-    others = [c for c in archs
-              if c.family not in ("dense", "ssm", "moe", "hybrid")
-              or c.mla is not None or c.prefix_frontend]
-    assert {c.family for c in others} == {"moe", "audio", "vlm"}
-    assert any(c.mla is not None for c in others)
-    assert any(c.prefix_frontend for c in others)
-    for cfg in others:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbb.init_params(cfg, None, device="meta")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbb.init_decode_state(cfg, 1, 8, device="cpu")
-    ported = [c for c in archs if c not in others]
-    assert {c.family for c in ported} == {"dense", "ssm", "moe", "hybrid"}
-    for cfg in ported:
+    assert {c.family for c in archs} == {"dense", "ssm", "moe", "hybrid",
+                                         "audio", "vlm"}
+    assert any(c.mla is not None for c in archs)
+    assert any(c.prefix_frontend for c in archs)
+    for cfg in archs:
+        params = tbb.init_params(cfg, None, device="meta")
+        assert ("ln_prefix" in params) == cfg.prefix_frontend, cfg.name
         state = tbb.init_decode_state(cfg, 1, 8, device="meta")
-        assert state
+        assert state, cfg.name
+        if cfg.mla is not None:
+            assert set(state) == {"dense_cache", "cache"}
+            assert set(state["cache"]) == {"ckv", "krope", "pos"}
+            assert (state["cache"]["ckv"].shape[-1]
+                    == cfg.mla.kv_lora_rank)
+        elif cfg.family in ("dense", "audio", "vlm"):
+            assert set(state["cache"]) == {"k", "v", "pos"}

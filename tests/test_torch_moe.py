@@ -8,8 +8,12 @@ pins) and once with ``impl="gspmd"`` (the capacity dispatch of the full
 config, which drops tokens); and the deepseek-style config
 ``REDUCED["deepseek-v3-671b"]`` without MLA at head dim 64 (sigmoid
 router with its selection bias, a shared expert, one leading dense layer,
-the MTP head). Both sides run fp32; the port runs its kernel path (on the
-CPU, the flash kernel's plain version), the reference ``use_pallas=False``.
+the MTP head), and the same config with its MLA attention as REDUCED has
+it (``deepseek-mla``: head dim 32, ranks q 64 / kv 32, nope / rope / v
+32 / 16 / 32; the MTP block's attention MLA too, the decode state latent).
+Both sides run fp32; the port runs its kernel path (on the CPU, the flash
+kernel's plain version; MLA takes ``sdpa`` on both), the reference
+``use_pallas=False``.
 Bar: 1e-4 relative (Frobenius, the largest leaf), as the other LM tests;
 the router's gates and probabilities 1e-6 absolute. The measured gaps
 print under ``pytest -s`` as ``parity-gap`` lines.
@@ -94,11 +98,13 @@ def _with_impl(cfg, impl, **moe_kw):
 
 
 def _configs(name):
-    """(reference cfg, port cfg) of one of the three test configs."""
+    """(reference cfg, port cfg) of one of the four test configs."""
     out = []
     for reg in (jconfigs.REDUCED, tconfigs.REDUCED):
         if name == "deepseek":
             out.append(reg[DEEPSEEK].with_overrides(mla=None, head_dim=64))
+        elif name == "deepseek-mla":
+            out.append(reg[DEEPSEEK])
         else:
             impl = name.split("-")[1]
             out.append(_with_impl(
@@ -106,7 +112,7 @@ def _configs(name):
     return tuple(out)
 
 
-CONFIGS = ["granite-dense", "granite-gspmd", "deepseek"]
+CONFIGS = ["granite-dense", "granite-gspmd", "deepseek", "deepseek-mla"]
 _PARAMS = {}
 
 
@@ -404,10 +410,17 @@ def _train_configs(name, remat=True, federated=None):
     return jt, tt
 
 
-def test_three_train_steps_match_reference(model):
+@pytest.mark.parametrize("name", CONFIGS[:3])
+def test_three_train_steps_match_reference(name):
     """Three AdamW steps of both packages from the same params and
-    batches: each step's metrics, and the params after three."""
-    name, jc, tc, pj, pt = model
+    batches: each step's metrics, and the params after three. deepseek
+    with MLA has its own train-step test (tests/test_torch_mla.py): its
+    free-running params part by more than the bar in elements whose
+    gradient is near AdamW's eps."""
+    jc, tc = _configs(name)
+    p_np = _params(name)
+    pj, pt = (jax.tree.map(jnp.asarray, p_np),
+              lm_params_from_numpy(p_np, device="cpu"))
     jt, tt = _train_configs(name)
     jstep, jopt = jsteps.make_train_step(jc, jt)
     jstep = jax.jit(jstep)
@@ -432,6 +445,11 @@ def test_three_train_steps_match_reference(model):
 # serving: prefill, decode, BatchedServer
 # --------------------------------------------------------------------------
 
+def _entries(cfg):
+    """A cache's per-position leaves: K and V, or MLA's latent."""
+    return ("ckv", "krope") if cfg.mla is not None else ("k", "v")
+
+
 @pytest.mark.parametrize("cache_len", [64, 16])     # > S and < S (ring)
 def test_prefill_logits_and_caches(model, cache_len):
     name, jc, tc, pj, pt = model
@@ -446,7 +464,8 @@ def test_prefill_logits_and_caches(model, cache_len):
                                   if tc.first_k_dense else {"cache"})
     _gap(f"{name} prefill last logits (C={cache_len})", _rel(lt.numpy(), lj))
     for part in st:
-        for k in ("k", "v"):
+        assert set(st[part]) == set(sj[part]) == {*_entries(tc), "pos"}
+        for k in _entries(tc):
             assert st[part][k].shape == sj[part][k].shape
             _gap(f"{name} prefill {part} {k} (C={cache_len})",
                  _rel(st[part][k].numpy(), sj[part][k]))
@@ -476,7 +495,7 @@ def test_decode_steps_after_prefill(model):
         cur = cur + 1
     _gap(f"{name} 8 decode steps, worst logits", worst)
     for part in st:
-        for k in ("k", "v"):
+        for k in _entries(tc):
             _gap(f"{name} decode {part} {k}",
                  _rel(st[part][k].numpy(), sj[part][k]))
 
@@ -549,7 +568,8 @@ def test_batched_server_greedy_matches_reference(model):
 D, H = 2, 2
 
 
-@pytest.mark.parametrize("name", ["granite-gspmd", "deepseek"])
+@pytest.mark.parametrize("name", ["granite-gspmd", "deepseek",
+                                  "deepseek-mla"])
 def test_federated_round_matches_reference(name):
     """One fedavg round, d = 2 silos x H = 2 local steps, against the
     reference's jitted make_federated_round_step: the (H, d) metrics and

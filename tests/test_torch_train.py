@@ -255,18 +255,34 @@ def test_loss_gradients_match_jax_grad(model, remat):
 
 
 def test_unported_losses_raise():
-    """MLA (deepseek) and modality-prefix (musicgen, chameleon) configs
-    raise in the loss and in prefill; the moe family without MLA and the
-    hybrid family are ported (tests/test_torch_moe.py,
-    tests/test_torch_hybrid.py)."""
+    """The families that raised run now: MLA (deepseek) and the
+    modality-prefix families (musicgen, chameleon) take a finite loss,
+    prefill and decode step on the port's own init (their parity with the reference is
+    tests/test_torch_mla.py, tests/test_torch_moe.py and
+    tests/test_torch_modality.py). A prefix family without its prefix
+    raises, as the reference's assert does."""
+    from repro_torch.models.modality import synthetic_prefix
     for name in ("musicgen-large", "deepseek-v3-671b", "chameleon-34b"):
         cfg = tconfigs.REDUCED[name]
+        params = tbb.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
         batch = {k: torch.tensor(v) for k, v in _batch(6, 1, 8).items()}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbb.loss_fn({}, batch, cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbb.prefill({}, torch.zeros((1, 4), dtype=torch.int32), cfg,
-                        cache_len=8)
+        toks = torch.zeros((1, 4), dtype=torch.int32)
+        if cfg.prefix_frontend:
+            with pytest.raises(ValueError, match="requires prefix_embeds"):
+                tbb.loss_fn(params, batch, cfg)
+            batch["prefix_embeds"] = synthetic_prefix(
+                torch.Generator().manual_seed(1), cfg, 1, device="cpu")
+        with torch.no_grad():
+            loss, metrics = tbb.loss_fn(params, batch, cfg)
+            logits, state, nxt = tbb.prefill(
+                params, toks, cfg, cache_len=16,
+                prefix_embeds=batch.get("prefix_embeds"))
+            step, _ = tbb.decode_step(params, state, toks[:, -1:], nxt, cfg)
+        assert np.isfinite(float(loss)), name
+        assert ("mtp" in metrics) == bool(cfg.mtp_depth), name
+        assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+        assert nxt.tolist() == [4 + cfg.prefix_len], name
     # rwkv6's serving path is ported: its decode state is the fp32
     # recurrence and token-shift states (tests/test_torch_rwkv6_serve.py)
     cfg = tconfigs.REDUCED[ARCH]
@@ -392,14 +408,12 @@ def test_train_cli_loss_falls():
 
 
 def test_train_unported_options_raise(monkeypatch):
-    """An arch with a prefix front end still raises, federated or not.
-    And train() runs a kernel only where it has a gradient: the ssm family
-    on the WKV6 kernels, a dense, moe or hybrid model on plain attention
-    (the flash kernel has no backward), in both branches."""
+    """An arch with a prefix front end trains now, federated or not, on
+    plain attention. And train() runs a kernel only where it has a
+    gradient: the ssm family on the WKV6 kernels, a dense, moe, hybrid or
+    prefix model on plain attention (the flash kernel has no backward), in
+    both branches."""
     from repro_torch.launch import train as ttrain
-    for kw in (dict(), dict(silos=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.train("musicgen-large", device="cpu", **kw)
     seen = []
 
     def spy(name):
@@ -412,12 +426,15 @@ def test_train_unported_options_raise(monkeypatch):
 
     spy("make_train_step")
     spy("make_federated_round_step")
-    for arch in ("llama3.2-1b", ARCH, "granite-moe-1b-a400m", "zamba2-1.2b"):
+    for arch in ("llama3.2-1b", ARCH, "granite-moe-1b-a400m", "zamba2-1.2b",
+                 "musicgen-large"):
         for silos in (1, 2):
-            ttrain.train(arch, steps=2, batch=2, seq=16, silos=silos,
-                         local_steps=2, device="cpu")
+            _, hist = ttrain.train(arch, steps=2, batch=2, seq=16,
+                                   silos=silos, local_steps=2, device="cpu")
+            assert all(np.isfinite(r["loss"]) for r in hist), (arch, silos)
     assert {(family, name) for family, name, _ in seen} == {
-        (family, name) for family in ("dense", "ssm", "moe", "hybrid")
+        (family, name) for family in ("dense", "ssm", "moe", "hybrid",
+                                      "audio")
         for name in ("make_train_step", "make_federated_round_step")}
     assert all(use == (family == "ssm") for family, _, use in seen), seen
 
