@@ -36,6 +36,14 @@ these paths through the port's public entry points:
   captured serve step answering from its arguments, onboarding against a
   recompute, the robust aggregators' acceptance, host == scan on the card,
   and the federated LLM losses falling;
+- the analysis tier (``repro_torch.analysis``): the artifact audit's
+  matrix (a tiny FL plan lowered in every unsharded flavor, captured,
+  replayed and held to its eager rounds, with no tenant data in it), its
+  two positive controls caught and its warm run building nothing; then
+  FedDCL's fit and serve() through the default plan cache, after which
+  every idle cached plan must hold only splats (the buffers a run filled
+  are zeroed), a reused FL plan gives its first tenant bitwise its own
+  answer again, and the clears are timed per FL run and per serve step;
 - the LLM serving path at full width and depth with random weights from a
   seed: llama3.2-1b prefill (bf16, B=4 x 2048 tokens) -> 32 decode steps ->
   BatchedServer (decode and server eager and as captured CUDA graphs,
@@ -133,6 +141,7 @@ os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import audit, find_baked_constants  # noqa: E402
 from repro_torch.api import FedDCL  # noqa: E402
 from repro_torch.benchmarks import (comm_cost, exp1_convergence,  # noqa: E402
                                     exp3_groups, fed_bench, kernels_bench,
@@ -142,16 +151,18 @@ from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import (ARCHS, REDUCED,  # noqa: E402
                                  FederatedConfig, InputShape, TrainConfig)
 from repro_torch.core import protocol  # noqa: E402
-from repro_torch.core.federated import (PlanCache,  # noqa: E402
-                                        clear_plan_cache, padded_layout,
-                                        plan_cache_stats, round_perms,
-                                        run_federated, silo_replicate)
+from repro_torch.core.federated import (FLPlan, PlanCache,  # noqa: E402
+                                        clear_plan_cache, default_plan_cache,
+                                        padded_layout, plan_cache_stats,
+                                        round_perms, run_federated,
+                                        silo_replicate)
 from repro_torch.data.partition import split_iid  # noqa: E402
 from repro_torch.data.tokens import TokenStream, silo_batches  # noqa: E402
 from repro_torch.data.tabular import make_dataset, train_test_split  # noqa: E402
 from repro_torch.examples import (end_to_end_driver,  # noqa: E402
                                   feddcl_llm_pretrain, serve_batched)
 from repro_torch.experiments import robust_ablation, sweep  # noqa: E402
+from repro_torch.graphs import capture  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gram import kernel as gram_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -174,6 +185,8 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import mlp  # noqa: E402
 from repro_torch.models.modality import synthetic_prefix  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.serve_collab.server import (  # noqa: E402
+    serve_step as collab_serve_step)
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet): fp32 FFMA
@@ -1154,6 +1167,176 @@ def phase_bar_drivers(dev):
           f"serve_batched statuses {row['serve_batched']['status']}")
     check(all(v == 0 for v in row["kernel_launches"].values()),
           f"the drivers launched kernels: {row['kernel_launches']}")
+    return row
+
+
+# -- the analysis tier: the artifact audit and idle plans ---------------------
+
+AUDIT_MIN_ELEMS = audit.MIN_ELEMS  # the reference audit script's threshold
+CLEAR_REPS = 200          # timed calls of each clear and each serve graph
+
+
+def idle_plans(plans):
+    """What idle plans hold: how many of each kind, how many captured a
+    graph, and every non-splat array of >= AUDIT_MIN_ELEMS elements."""
+    return {"plans": len(plans),
+            "fl_plans": sum(isinstance(p, FLPlan) for p in plans),
+            "captured": sum(p.captures for p in plans),
+            "non_splat": [{"plan": type(p).__name__, **b} for p in plans
+                          for b in find_baked_constants(p, AUDIT_MIN_ELEMS)]}
+
+
+def fl_reuse(dev, model):
+    """Step 4 through the fit's cached plan (its cache key): tenant A (the
+    fit's own silos), tenant B (the same silos, rows reversed: the same
+    bucket), A again. A's second run must be bitwise its first."""
+    loss = partial(mlp.mlp_per_example_loss, task=model.task)
+    kw = dict(opt=adamw(model.lr), rounds=model.rounds,
+              local_epochs=model.local_epochs, batch_size=model.batch_size,
+              engine="scan", cache=True, device=dev,
+              loss_id=("mlp_per_example_loss", model.task),
+              opt_id=("adamw", model.lr))
+    a = model.setup_.fed_silos()
+    b = [(x[::-1].copy(), y[::-1].copy()) for x, y in a]
+    runs = [run_federated(loss, model.params_, t, **kw) for t in (a, b, a)]
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(runs[0].params), tree_leaves(runs[2].params)))
+    losses = [[h["loss"] for h in r.history] for r in runs]
+    return {"hits": [r.cache_stats["hit"] for r in runs],
+            "a_again_bitwise": same and losses[0] == losses[2],
+            "b_differs": losses[0] != losses[1]}
+
+
+def serve_clears(dev):
+    """serve_bench at its full layout after its cold and warm sweeps (its
+    own plan cache), then group 0's step at the full bucket: replays of the
+    plan's graph (the step, then the in-graph clear of its argument
+    buffers) against a graph of the step alone captured over the same
+    buffers, in turns, each between CUDA events with the live arguments
+    copied in before it; their outputs bitwise; and the output clear after
+    the host copy. Returns the row and the server's idle plans."""
+    b = serve_bench.build(fast=False, device=dev)
+    serve_bench.serve_sweeps(b)
+    idle = idle_plans(b.srv.cache.plans())
+    step = b.srv.lower_step(0, serve_bench.MAX_BATCH)
+    plan = step.plan
+    params, M, mu, x, tix = step.args
+    live = dict(params=params, M=M, mu=mu, x=x.to(dev), tix=tix.to(dev))
+    bufs = plan._bufs
+    bare, bare_out = capture(lambda: collab_serve_step(**bufs), dev)
+
+    def fill():
+        tree_map(lambda d, a: d.copy_(a), bufs, live)
+
+    fill()
+    bare.replay()
+    y_bare = bare_out.clone()
+    fill()
+    plan._graph.replay()
+    y_plan = plan._out.clone()
+    cleared = all(not bool(t.any()) for t in tree_leaves(bufs))
+    times = {"bare": [], "with_clear": []}
+    for _ in range(CLEAR_REPS):
+        for name, graph in (("bare", bare), ("with_clear", plan._graph)):
+            fill()
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            graph.replay()
+            e.record()
+            times[name].append((s, e))
+    torch.cuda.synchronize()
+    ms = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+          for k, v in times.items()}
+    del bare, bare_out
+    return {"layout": b.lay, "b_pad": serve_bench.MAX_BATCH,
+            "step_ms": ms["bare"], "step_with_clear_ms": ms["with_clear"],
+            "in_graph_clear_ms": ms["with_clear"] - ms["bare"],
+            "buffers": len(tree_leaves(bufs)),
+            "buffer_bytes": sum(t.numel() * t.element_size()
+                                for t in tree_leaves(bufs)),
+            "out_clear_ms": time_ms(plan._out.zero_, CLEAR_REPS),
+            "rows_bitwise_vs_no_clear": torch.equal(y_bare, y_plan),
+            "buffers_zero_after_replay": cleared}, idle
+
+
+def phase_audit(dev, smi):
+    """The analysis tier on the card: the audit module's matrix (each
+    flavor's plan lowered: built, captured, replayed, held to its eager
+    rounds; no baked data), both positive controls caught, the warm
+    sentinel; then FedDCL at the mnist width with its defaults
+    (run_federated(cache=True)) and FedDCL.serve() through the default
+    plan cache at the serve_collab phase's stream, served twice: every
+    cached plan holds only splats once idle, a cached FL plan reused by a
+    second tenant gives the first bitwise its own answer again, and the
+    served rows repeat bitwise. The clears' cost: the FL plan's release
+    per run, the serve step's in-graph clear and its output clear per
+    step, beside the card's name and power limit."""
+    t_phase = time.perf_counter()
+    rep = audit.run(dev, AUDIT_MIN_ELEMS)
+    row = {"phase": "audit", "nvidia_smi": smi, "min_elems": AUDIT_MIN_ELEMS,
+           "flavors": rep["flavors"],
+           "closure_control": rep["closure_control"],
+           "buffer_control": rep["buffer_control"],
+           "warm_recompiles": rep["warm_recompiles"],
+           "skipped": rep["skipped"]}
+    Xs, Ys, Xte, _ = mnist_exp2_layout()
+    clear_plan_cache()
+    model = fit_model(dev)
+    _, fit = model.fit(Xs, Ys)
+    srv = model.serve(max_batch=SERVE_MAX_BATCH)
+    rng = np.random.default_rng(7)
+    tenants = [(g, u) for g in range(D) for u in range(C)]
+    stream = [(*tenants[int(rng.integers(len(tenants)))],
+               rng.integers(0, len(Xte), int(rng.integers(
+                   1, SERVE_MAX_ROWS + 1)))) for _ in range(SERVE_REQUESTS)]
+    served = []
+    for _ in range(2):
+        reqs = [srv.submit(Xte[idx], g, u) for g, u, idx in stream]
+        out = srv.serve()
+        served.append([out[r.rid] for r in reqs])
+    row["serve_twice_bitwise"] = all(
+        np.array_equal(a, b) for a, b in zip(*served))
+    row["fl_reuse"] = fl_reuse(dev, model)
+    row["idle_default_cache"] = idle_plans(default_plan_cache().plans())
+    fl_plan = next(p for p in default_plan_cache().plans()
+                   if isinstance(p, FLPlan))
+    fl_bufs = [t for t in tree_leaves(fl_plan._bufs.carry) + [
+        fl_plan._bufs.X, fl_plan._bufs.Y, fl_plan._bufs.w, fl_plan._bufs.wr,
+        fl_plan._bufs.scale, fl_plan._bufs.perms, fl_plan._bufs.loss]
+        if t is not None]
+    row["fl_clear"] = {
+        "ms_per_run": time_ms(fl_plan._release, CLEAR_REPS),
+        "buffers": len(fl_bufs),
+        "buffer_bytes": sum(t.numel() * t.element_size() for t in fl_bufs),
+        "fit_rounds_s": fit.timings["rounds_s"], "rounds": model.rounds}
+    row["serve_clear"], row["idle_serve_bench_cache"] = serve_clears(dev)
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    check(rep["ok"], f"audit: {rep}")
+    for f in rep["flavors"]:
+        check(f["plans"] == 1 and f["captures"] == 1,
+              f"audit {f['flavor']}: {f['plans']} plans, {f['captures']} "
+              "captures (one each)")
+        check(f["max_rel_err_vs_eager"] <= 1e-5,
+              f"audit {f['flavor']}: replay vs eager "
+              f"{f['max_rel_err_vs_eager']}")
+    for name in ("idle_default_cache", "idle_serve_bench_cache"):
+        idle = row[name]
+        check(idle["captured"] > 0 and not idle["non_splat"],
+              f"{name}: idle plans hold {idle['non_splat']}")
+    check(row["idle_default_cache"]["fl_plans"] >= 1
+          and row["idle_default_cache"]["plans"]
+          > row["idle_default_cache"]["fl_plans"],
+          f"the default cache lacks an FL or a serve plan: "
+          f"{row['idle_default_cache']}")
+    check(row["serve_twice_bitwise"], "the stream served twice differs")
+    reuse = row["fl_reuse"]
+    check(reuse["hits"] == [True, True, True] and reuse["a_again_bitwise"]
+          and reuse["b_differs"], f"FL plan reuse: {reuse}")
+    sc = row["serve_clear"]
+    check(sc["rows_bitwise_vs_no_clear"] and sc["buffers_zero_after_replay"],
+          f"serve clear: {sc}")
     return row
 
 
@@ -2138,6 +2321,7 @@ def phase_rwkv6_federated(dev, sp, train_row):
             b = tree_map(lambda a: a[0], fed_batches(cfg, [rnd]))
             (sp, so, m), t = timed(lambda: round_step(sp, so, b))
             round_s.append(t)
+            # feddcl-lint: disable=R008  the phase checks and times each round on its own: one fetch a round is what it measures
             losses += m["loss"].flatten().tolist()
             equal_after_sync.append(silos_equal(sp))
             launches.append((wkv_kernel.launches - before[0],
@@ -2862,6 +3046,7 @@ def lm_federated(cfg, p32, dev, B, S, rounds, *, opt_state_dtype="float32",
     losses, moe_aux, round_s, equal = [], [], [], []
     for r in range(rounds):
         bs = batches(r)
+        # feddcl-lint: disable=R008  each round is timed alone: the sync bounds its measurement
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if r == 0:
@@ -2870,11 +3055,14 @@ def lm_federated(cfg, p32, dev, B, S, rounds, *, opt_state_dtype="float32",
             sp, so = sync(sp, so)
         else:
             sp, so, m = round_step(sp, so, bs)
+        # feddcl-lint: disable=R008  each round is timed alone: the sync bounds its measurement
         torch.cuda.synchronize()
         round_s.append(time.perf_counter() - t0)
         equal.append(silos_equal(sp))
+        # feddcl-lint: disable=R008  the round was synced above: the phase reads each round's loss and aux after it
         losses.append(m["loss"].tolist())
         if "moe_aux" in m:
+            # feddcl-lint: disable=R008  as the loss above, after the round's sync
             moe_aux.append(m["moe_aux"].tolist())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(round_s)
@@ -3225,6 +3413,8 @@ def main() -> int:
     paper_row = phase_paper_experiments(dev)
     clear_plan_cache()
     phase_bar_drivers(dev)
+    clear_plan_cache()
+    phase_audit(dev, smi)
     clear_plan_cache()
     flash_rows = phase_flash_check(dev, peak)
     p32, p16, logits, state, nxt, prefill_row = phase_llm_prefill(dev)

@@ -54,7 +54,8 @@ def main() -> int:
     loss = partial(mlp.mlp_per_example_loss, task="classification")
     p0 = mlp.init_mlp_params(torch.Generator().manual_seed(3), cs.M_TILDE,
                              (500, 100), 10, device=dev)
-    a = torch.randn(64, 64, device=dev)
+    a = torch.randn(64, 64, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
     float((a @ a).sum())
     kw = dict(opt=adamw(1e-3), rounds=2, local_epochs=4, batch_size=32,
               device=dev)

@@ -23,7 +23,8 @@ ragged silo stack with the same seed and schedule. The row keeps:
       [--out-dir results_torch]
 
 Writes ``BENCH_fed.json`` under the output directory. The reference's
-``--sharded`` rows wait for silo sharding (ROADMAP.md, Queue 1 item 5).
+``--sharded`` rows wait for silo sharding (ROADMAP.md, Queue 1,
+multi-process silo sharding).
 """
 from __future__ import annotations
 
@@ -183,7 +184,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         raise NotImplementedError(
             "fed_bench --sharded compares sharded plans with unsharded "
             "ones; silo sharding is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1 item 5)")
+            "(ROADMAP.md, Queue 1, multi-process silo sharding)")
     dev = resolve_device(args.device)
     out = {"bench": "fed_engine_scan_vs_host", **device_meta(dev),
            "fast": args.fast, "cases": run(fast=args.fast, device=dev)}

@@ -41,8 +41,13 @@ available silos), silo dropout (``dropout_rate`` or an explicit
 ``availability`` matrix, folded into per-round weights on the host) and
 per-silo delta scaling (``silo_scale``, the attacker's injection point).
 
-Not in this port yet: mesh sharding (``mesh=`` raises NotImplementedError)
-and the XLA lowering hook ``lower_fl_plan``.
+A plan holds no tenant data between runs: once a run has returned its
+results, every buffer it filled (the silo stack, weights, scales,
+schedule, carry and loss) is zeroed. ``lower_fl_plan`` binds a plan to one
+tenant's arguments for ``analysis.hlo_audit``, which checks both that a
+plan answers from its arguments and that an idle plan holds only splats.
+
+Not in this port yet: mesh sharding (``mesh=`` raises NotImplementedError).
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs import capture
+from repro_torch.graphs import capture, zero_buffers
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -528,6 +533,10 @@ class PlanCache:
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions, "plans": len(self._plans),
                 "captures": self.captures, "replays": self.replays}
+
+    def plans(self) -> List[Any]:
+        """The cached plans, least recently used first."""
+        return [plan for plan, _ in self._plans.values()]
 
     def clear(self) -> None:
         self._plans.clear()
@@ -1019,7 +1028,9 @@ class FLPlan:
     The buffers (silo stack, carry, one round's perms and weights, scale)
     are allocated by the first run and sized by it; a later run must have
     the same padded shapes (the plan cache guarantees it) and copies its
-    tenant in. `captures` / `replays` count graphs captured and rounds
+    tenant in. Every run ends by zeroing them (``_release``), so a plan
+    waiting in the cache for its next tenant holds none of the last one's
+    data. `captures` / `replays` count graphs captured and rounds
     replayed. A plan is not re-entrant: run() while another run() of the
     same plan is live raises.
     """
@@ -1031,6 +1042,9 @@ class FLPlan:
                  trim_frac: float = 0.2, krum_f: int = 1,
                  device: DeviceLike = None):
         self.num_silos = num_silos
+        self.num_batches = num_batches
+        self.batch_size = batch_size
+        self.local_epochs = local_epochs
         self.opt = opt
         self.aggregator = aggregator
         self.reset_opt = reset_opt
@@ -1082,7 +1096,18 @@ class FLPlan:
         try:
             return self._run(init_params, args, rounds, eval_fn, eval_chunk)
         finally:
+            self._release()
             self._live = False
+
+    def _release(self) -> None:
+        """Zero every buffer a run filled with tenant data: the silo stack
+        (X, Y, w), this round's weights and schedule, the scales, the carry
+        and the loss. One fused fill per dtype per run; the next run copies
+        its own tenant into every one of them before its first replay."""
+        b = self._bufs
+        if b is not None:
+            zero_buffers([b.carry, b.X, b.Y, b.w, b.wr, b.scale, b.perms,
+                          b.loss])
 
     def _run(self, init_params, args, rounds, eval_fn, eval_chunk):
         timings = {"bind_s": 0.0, "warmup_s": 0.0, "capture_s": 0.0}
@@ -1109,6 +1134,7 @@ class FLPlan:
                 stack = tree_map(lambda a: a.new_empty((nr,) + a.shape), gp)
             tree_map(lambda s, a: s[j].copy_(a), stack, gp)
             if j == nr - 1:
+                # feddcl-lint: disable=R008  one transfer per eval_chunk rounds (the batched form the rule asks for), not one per round
                 for jj, l in enumerate(losses[rnd0:rnd + 1].tolist()):
                     rec = {"round": rnd0 + jj, "loss": l}
                     rec.update(eval_fn(tree_map(lambda s: s[jj], stack)))
@@ -1117,6 +1143,7 @@ class FLPlan:
         if eval_fn is None:
             history = [{"round": r, "loss": l}
                        for r, l in enumerate(losses.tolist())]
+        # a copy: the carry buffers are zeroed once the run returns
         params = tree_map(lambda a: a.clone(), final())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1211,6 +1238,93 @@ def _plan_args(padded: PaddedSilos, data, rounds: int, *, aggregator: str,
         np.stack([schedule(r) for r in range(rounds)]), device=device)
     return (X, Y, w, torch.as_tensor(wr, device=device),
             torch.as_tensor(scale, device=device), perms)
+
+
+def _flat(tree: Any) -> np.ndarray:
+    return np.concatenate([np.asarray(a.detach().double().cpu()).ravel()
+                           for a in tree_leaves(tree)])
+
+
+class LoweredPlan:
+    """An FL plan bound to one tenant's padded stack and schedule
+    (``lower_fl_plan``): what ``analysis.hlo_audit.assert_no_baked_data``
+    takes, as it takes ``ServeCollab.lower_step``. ``args`` = (init_params,
+    X, Y, w, wr, scale, perms), the device arguments ``_plan_args`` gives.
+    ``run(*args)`` trains `rounds` rounds through the plan as served (on
+    CUDA, replays of its captured round) and ``eager(*args)`` the same
+    rounds through ``FLPlan._eager_rounds``. Each returns the final params
+    and the per-round losses as one float64 vector; with an eval chunk
+    (``eval_chunk=`` of ``run``, default the one lowered with) ``run``
+    hands each chunk of rounds' params to an evaluation that appends them,
+    and ``eager`` appends each round's params alike."""
+
+    def __init__(self, plan: "FLPlan", args: Tuple, rounds: int,
+                 eval_chunk: Optional[int]):
+        self.plan = plan
+        self.args = args
+        self.rounds = rounds
+        self.eval_chunk = eval_chunk
+
+    def run(self, init_params, *fl_args,
+            eval_chunk: Optional[int] = None) -> np.ndarray:
+        chunk = self.eval_chunk if eval_chunk is None else eval_chunk
+        seen: List[np.ndarray] = []
+
+        def keep(params) -> Dict[str, float]:
+            seen.append(_flat(params))
+            return {}
+
+        res = self.plan.run(init_params, fl_args, rounds=self.rounds,
+                            eval_fn=None if chunk is None else keep,
+                            eval_chunk=chunk or 1)
+        return np.concatenate([_flat(res.params),
+                               [h["loss"] for h in res.history], *seen])
+
+    @torch.no_grad()
+    def eager(self, init_params, *fl_args,
+              eval_chunk: Optional[int] = None) -> np.ndarray:
+        chunk = self.eval_chunk if eval_chunk is None else eval_chunk
+        next_round, final = self.plan._eager_rounds(init_params, fl_args)
+        losses, seen = [], []
+        for rnd in range(self.rounds):
+            loss, gp = next_round(rnd)
+            losses.append(loss)
+            if chunk is not None:
+                seen.append(_flat(gp))
+        return np.concatenate([_flat(final()), _flat(losses), *seen])
+
+
+def lower_fl_plan(plan: FLPlan, init_params: Any, padded: PaddedSilos, *,
+                  rounds: int, seed: int = 0,
+                  schedule: Optional[Schedule] = None,
+                  availability: Optional[np.ndarray] = None,
+                  silo_scale: Optional[np.ndarray] = None,
+                  eval_chunk: Optional[int] = None) -> LoweredPlan:
+    """Bind `plan` to one tenant's padded stack and schedule (drawn from
+    `seed` unless given) through ``_plan_args``, on the plan's device, and
+    run it once (on CUDA: its build, capture and replays): the hook the
+    artifact audit drives (``analysis.hlo_audit.assert_no_baked_data``).
+    The counterpart of the reference's ``lower_fl_plan``; its
+    ``StreamedPlan`` case has none, since the port chunks evaluation inside
+    ``FLPlan.run``: `eval_chunk` (None: no evaluation) is the lowered
+    plan's ``run`` option instead."""
+    if (padded.num_silos, padded.num_batches, padded.batch_size) != (
+            plan.num_silos, plan.num_batches, plan.batch_size):
+        raise ValueError(
+            f"padded layout (silos, batches, batch) = ({padded.num_silos}, "
+            f"{padded.num_batches}, {padded.batch_size}) is not the plan's "
+            f"({plan.num_silos}, {plan.num_batches}, {plan.batch_size})")
+    dev = plan.device
+    sched = _schedule_fn(schedule, seed, padded.num_silos, plan.local_epochs,
+                         padded.n_slots, rounds)
+    fl_args = _plan_args(padded, _to_device(padded, dev), rounds,
+                         aggregator=plan.aggregator, schedule=sched,
+                         device=dev, availability=availability,
+                         silo_scale=silo_scale)
+    params = tree_map(lambda a: a.detach().to(dev), init_params)
+    lowered = LoweredPlan(plan, (params,) + fl_args, rounds, eval_chunk)
+    lowered.run(*lowered.args)
+    return lowered
 
 
 def make_scan_runner(batch_loss, padded: PaddedSilos, *, opt, rounds,

@@ -21,8 +21,8 @@ The script ASSERTS the acceptance criteria:
     scaled silo.
 
 The reference also holds sharded == unsharded; silo sharding is not
-ported (ROADMAP.md, Queue 1 item 5), so without ``--skip-sharded`` the
-script raises before it runs anything.
+ported (ROADMAP.md, Queue 1, multi-process silo sharding), so without
+``--skip-sharded`` the script raises before it runs anything.
 
   python -m repro_torch.experiments.robust_ablation --skip-sharded [--fast]
       [--device cpu] [--out-dir results_torch]
@@ -175,8 +175,8 @@ def check_engine_agreement(sizes, rounds: int, epochs: int, *,
 def check_sharded_agreement(sizes, rounds: int, epochs: int):
     raise NotImplementedError(
         "the sharded == unsharded check needs silo sharding, which is not "
-        "ported to repro_torch yet (ROADMAP.md, Queue 1 item 5); run with "
-        "--skip-sharded")
+        "ported to repro_torch yet (ROADMAP.md, Queue 1, multi-process "
+        "silo sharding); run with --skip-sharded")
 
 
 def _cell(rows, scenario, agg):

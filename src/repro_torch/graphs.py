@@ -11,6 +11,7 @@ raises: no caller falls back to an eager step.
 
 ``graphs_captured()`` is the number of graphs captured here for the life
 of the process: ``analysis.hlo_audit.CompileCounter`` reads it.
+``zero_buffers`` clears static buffers once their tenant's work is done.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.tree import tree_leaves
 
 _CAPTURE_STREAMS: Dict[str, "torch.cuda.Stream"] = {}
 _captured = 0
@@ -64,3 +67,15 @@ def capture(fn: Callable[[], Any], device: torch.device, *,
         timings["warmup_s"] = t1 - t0
         timings["capture_s"] = time.perf_counter() - t1
     return graph, out
+
+
+def zero_buffers(tree: Any) -> None:
+    """Zero every tensor leaf of `tree` in place (None leaves skipped), one
+    ``torch._foreach_zero_`` per (device, dtype): each group is one fused
+    kernel, where a list of mixed dtypes takes a kernel per tensor."""
+    groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
+    for t in tree_leaves(tree):
+        if t is not None:
+            groups.setdefault((t.device, t.dtype), []).append(t)
+    for ts in groups.values():
+        torch._foreach_zero_(ts)

@@ -6,7 +6,7 @@ axis of one device, it takes the gspmd path (``layers.apply_moe_gspmd``).
 The port has no mesh: a process alone takes that fallback, and a process
 in a ``torch.distributed`` group of more than one rank, where the experts
 would be spread over the ranks, raises, since the exchange waits for
-multi-process sharding (ROADMAP.md, Queue 1 item 5).
+multi-process sharding (ROADMAP.md, Queue 1, multi-process silo sharding).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ def apply_moe_ep(p, x: torch.Tensor, cfg: ModelConfig
         raise NotImplementedError(
             f"{cfg.name}: expert-parallel dispatch over "
             f"{dist.get_world_size()} ranks needs the all_to_all exchange, "
-            f"which is not ported. See ROADMAP.md, Queue 1 item 5")
+            "which is not ported. See ROADMAP.md, Queue 1, multi-process "
+            "silo sharding")
     from repro_torch.models.layers import apply_moe_gspmd
     return apply_moe_gspmd(p, x, cfg)

@@ -19,7 +19,10 @@ On CUDA a bucket's step is one captured ``torch.cuda.CUDAGraph``
 addresses while the key names no group and no params, so the graph owns a
 static buffer for every argument and each step copies the live arguments
 in before its replay; outputs come back with one device-to-host copy a
-step. On the CPU a bucket's step is the eager function.
+step. The graph ends by zeroing its argument buffers and the step zeroes
+its output once it is on the host, so a plan waiting in the cache holds
+no tenant's tables, params or rows. On the CPU a bucket's step is the
+eager function.
 
 Admission reuses the slot-table/continuous-batching idiom of
 launch/serve.py, adapted to one-shot requests: a FIFO deque is scanned for
@@ -44,7 +47,7 @@ from repro_torch.core.federated import (PlanCache, _note_plan_built,
                                         default_plan_cache)
 from repro_torch.core.protocol import FedDCLSetup
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs import capture
+from repro_torch.graphs import capture, zero_buffers
 from repro_torch.models import mlp
 from repro_torch.serve_collab.tables import TenantTable, build_tables
 from repro_torch.tree import tree_map
@@ -106,9 +109,11 @@ class ServePlan:
     buffers for EVERY argument (params, M, mu, x, tix), filled from the
     live arguments before each replay: groups and servers that share the
     entry each get their own tables' and params' answer, and a table
-    rebuilt by onboarding (a new tensor) is read as it is now. On the CPU,
-    the eager step. `captures` / `replays` count graphs captured and steps
-    replayed."""
+    rebuilt by onboarding (a new tensor) is read as it is now. The graph
+    zeroes the argument buffers after the step, and the output buffer is
+    zeroed once its rows are on the host: between calls the plan holds
+    only zeros. On the CPU, the eager step. `captures` / `replays` count
+    graphs captured and steps replayed."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -131,16 +136,26 @@ class ServePlan:
         if self.device.type != "cuda":
             return serve_step(**live).numpy()
         if self._bufs is None:
+            # zeros: the capture's warm-up runs on them (tenant index 0)
             self._bufs = tree_map(
-                lambda a: torch.empty(a.shape, dtype=a.dtype,
+                lambda a: torch.zeros(a.shape, dtype=a.dtype,
                                       device=self.device), live)
-        tree_map(lambda dst, src: dst.copy_(src), self._bufs, live)
         if self._graph is None:
-            self._graph, self._out = capture(
-                lambda: serve_step(**self._bufs), self.device)
+            self._graph, self._out = capture(self._step_and_clear,
+                                             self.device)
+        tree_map(lambda dst, src: dst.copy_(src), self._bufs, live)
         self._graph.replay()
         self.replays += 1
-        return self._out.cpu().numpy()
+        y = self._out.cpu().numpy()
+        self._out.zero_()
+        return y
+
+    def _step_and_clear(self) -> torch.Tensor:
+        """What the graph holds: the step on the buffers, then the buffers
+        zeroed (inside the graph: no extra host launch a step)."""
+        out = serve_step(**self._bufs)
+        zero_buffers(self._bufs)
+        return out
 
 
 class LoweredStep:

@@ -59,6 +59,8 @@ SERVE_TOL = 2e-5
 ONBOARD_TOL = 1e-5
 LOSS_TOL = 1e-4
 PARAM_TOL = 1e-5
+# what the sharded legs' errors name: the ROADMAP item, by name
+SHARDING_QUEUE = "Queue 1, multi-process silo sharding"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -348,14 +350,14 @@ def test_robust_ablation_cli_accepts_and_writes_only_its_out_dir(
 
 def test_sharded_legs_raise_before_any_work(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
         robust_ablation.main(["--fast", "--device", "cpu", "--out-dir", "o"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
         robust_ablation.check_sharded_agreement((4, 4), 2, 1)
     for flag in ("--sharded", "--sharded-worker"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
             fed_bench.main([flag, "--device", "cpu", "--out-dir", "o"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
         collective_census("")
     assert list(tmp_path.iterdir()) == []
 

@@ -52,6 +52,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.examples.quickstart",
             "repro_torch.examples.feddcl_tabular",
             "repro_torch.analysis", "repro_torch.analysis.hlo_audit",
+            "repro_torch.analysis.lint", "repro_torch.analysis.audit",
             "repro_torch.benchmarks.serve_bench",
             "repro_torch.benchmarks.fed_bench",
             "repro_torch.experiments.robust_ablation",
