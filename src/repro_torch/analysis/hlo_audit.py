@@ -29,8 +29,13 @@ and, on CUDA, captures them as CUDA graphs, so its audits are these:
     alone must change the output. Then ``find_baked_constants`` runs over
     the idle plan the step ran through (``step.plan``).
 
-`collective_census` waits for silo sharding (ROADMAP.md, Queue 1,
-multi-process silo sharding): the port runs no collective yet.
+`collective_census(lowered)` — the collectives of one round of a lowered
+    plan, {kind: operands}. A sharded plan records what its round boundary
+    ran (``core.federated.SiloComm``): a weighted aggregator
+    {all-reduce: leaves+1} per hierarchy level, a robust one
+    {all-reduce: 1, all-gather: leaves+1}; an unsharded plan runs none and
+    gives {}. Operands, not operations: the port combines a tree's leaves
+    into one buffer per level, as XLA combines the reference's.
 """
 from __future__ import annotations
 
@@ -266,8 +271,18 @@ def assert_no_baked_data(step: Any, min_elems: int = 1024) -> None:
             "(a cached plan is handed to the next tenant of its shapes)")
 
 
-def collective_census(*args, **kwargs):
-    raise NotImplementedError(
-        "collective_census counts the collectives of a sharded plan; silo "
-        "sharding is not ported to repro_torch yet (ROADMAP.md, Queue 1, "
-        "multi-process silo sharding)")
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "all-to-all",
+                    "collective-permute", "reduce-scatter")
+
+
+def collective_census(lowered: Any,
+                      kinds: Tuple[str, ...] = COLLECTIVE_KINDS
+                      ) -> Dict[str, int]:
+    """{kind: operands} of the last round the lowered plan (or the plan
+    itself) ran, zero-count kinds omitted; {} for an unsharded plan. The
+    count per round cannot grow with local epochs unless a collective
+    leaks into the local phase."""
+    comm = getattr(getattr(lowered, "plan", lowered), "comm", None)
+    if comm is None:
+        return {}
+    return {k: n for k, n in comm.census.items() if k in kinds and n}

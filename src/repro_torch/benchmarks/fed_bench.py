@@ -22,9 +22,19 @@ ragged silo stack with the same seed and schedule. The row keeps:
   python -m repro_torch.benchmarks.fed_bench [--fast] [--device cpu]
       [--out-dir results_torch]
 
-Writes ``BENCH_fed.json`` under the output directory. The reference's
-``--sharded`` rows wait for silo sharding (ROADMAP.md, Queue 1,
-multi-process silo sharding).
+Writes ``BENCH_fed.json`` under the output directory.
+
+``--sharded`` compares the unsharded plan with the same plan sharded over
+a ``make_host_mesh(model=1)`` mesh of ranks (``launch.mesh.run_ranks``:
+DC-server processes, the reference's virtual devices), at 1 rank and at
+``--ranks`` ranks (default 2), each row timed on rank 0 and holding the
+reference's asserts: ``rel_param_diff`` <= 1e-5 at rounds <= 5 (1e-2, a sanity bound,
+at rounds 20: the two sum in different fp32 orders and AdamW amplifies
+it), and the round's collective census per aggregator. It writes
+``BENCH_fed_sharded.json``. ``--sharded-worker`` runs one case (``--d``,
+``--rounds``, ``--aggregator``) on ``--ranks`` ranks and writes its row to
+``BENCH_fed_sharded_row.json``. On one card every rank computes on it, taking turns: these
+rows speed nothing up.
 """
 from __future__ import annotations
 
@@ -37,12 +47,15 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.benchmarks.common import OUT_DIR
 from repro_torch.core import federated
 from repro_torch.core.federated import (Schedule, make_scan_runner,
                                         pad_silo_data, run_federated)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import (DEFAULT_RANKS, make_host_mesh,
+                                     rank_device, run_ranks)
 from repro_torch.experiments.sweep import device_meta
 from repro_torch.models import mlp
 from repro_torch.optim import adamw
@@ -151,6 +164,111 @@ def bench_case(d: int, rounds: int, *, warm_iters: int = 3,
     }
 
 
+def _warm_time(runner, params, dev, warm_iters: int):
+    out = runner(params)                            # build and capture
+    t = float("inf")
+    for _ in range(warm_iters):
+        t0 = time.perf_counter()
+        out = runner(params)
+        _sync(dev)
+        t = min(t, time.perf_counter() - t0)
+    return t, out[0]
+
+
+def bench_sharded_cases(cases, warm_iters: int = 3,
+                        device: DeviceLike = None) -> List[Dict]:
+    """A rank target: for each (d, rounds, aggregator) of `cases`, the
+    unsharded plan and the same plan sharded over every rank of the group
+    (``make_host_mesh(model=1)``), each warm-timed on this rank, their
+    params compared, and the sharded round's collective census."""
+    from repro_torch.analysis.hlo_audit import collective_census
+    dev = resolve_device(device or rank_device())
+    mesh = make_host_mesh(model=1)
+    shards = federated.num_silo_shards(mesh)
+    batch_loss = federated._make_batch_loss(loss, True, 0.0)
+    rows = []
+    for d, rounds, aggregator in cases:
+        silos = _make_silos(d)
+        params = mlp.init_mlp_params(torch.Generator().manual_seed(0),
+                                     M_FEAT, (32,), 1, device=dev)
+        kw = dict(opt=adamw(1e-3), rounds=rounds, local_epochs=LOCAL_EPOCHS,
+                  seed=0, aggregator=aggregator, device=dev)
+        base = make_scan_runner(batch_loss, pad_silo_data(silos, BATCH),
+                                **kw)
+        t_vmap, p_vmap = _warm_time(base, params, dev, warm_iters)
+        padded = pad_silo_data(silos, BATCH,
+                               min_silos=-(-d // shards) * shards)
+        sharded = make_scan_runner(batch_loss, padded, mesh=mesh, **kw)
+        t_sharded, p_sharded = _warm_time(sharded, params, dev, warm_iters)
+        rows.append({
+            "ranks": dist.get_world_size(), "d": d, "rounds": rounds,
+            "aggregator": aggregator, "local_epochs": LOCAL_EPOCHS,
+            "batch_size": BATCH, "device": str(dev),
+            "t_vmap_warm_s": t_vmap, "t_sharded_warm_s": t_sharded,
+            "speedup_sharded": t_vmap / t_sharded,
+            "rel_param_diff": _rel_diff(p_vmap, p_sharded),
+            "collectives": collective_census(sharded.plan),
+            "param_leaves": len(tree_leaves(params))})
+    return rows
+
+
+def sharded_cases(fast: bool):
+    base = [(8, 5)] if fast else [(8, 5), (32, 5), (8, 20), (32, 20)]
+    robust = ("median",) if fast else federated.ROBUST_AGGREGATORS
+    return [(d, r, "fedavg") for d, r in base] + [(8, 5, a) for a in robust]
+
+
+def check_sharded_row(row: Dict) -> None:
+    """The reference's asserts on one row."""
+    tol = 1e-5 if row["rounds"] <= 5 else 1e-2
+    assert row["rel_param_diff"] <= tol, row
+    if row["ranks"] > 1:
+        if row["aggregator"] in federated.ROBUST_AGGREGATORS:
+            assert row["collectives"] == {
+                "all-reduce": 1, "all-gather": row["param_leaves"] + 1}, row
+        else:
+            assert row["collectives"] == {
+                "all-reduce": row["param_leaves"] + 1}, row
+
+
+def run_sharded(fast: bool, ranks: int, out_path: str,
+                device: DeviceLike = None, warm_iters: int = 3) -> Dict:
+    """Every sharded case at 1 rank and at `ranks` ranks (one group of
+    ranks each), the asserts held, ``BENCH_fed_sharded.json`` written."""
+    dev = resolve_device(device)
+    rows: List[Dict] = []
+    for world in (1, ranks):
+        got = run_ranks("repro_torch.benchmarks.fed_bench:bench_sharded_cases",
+                        world, args=(sharded_cases(fast), warm_iters,
+                                     None if dev.type == "cuda" else "cpu"),
+                        device=dev)
+        for row in got[0]:
+            rows.append(row)
+            print(f"ranks={world} d={row['d']:3d} rounds={row['rounds']:3d} "
+                  f"{row['aggregator']:12s}  vmap {row['t_vmap_warm_s']:7.4f}s"
+                  f"  sharded {row['t_sharded_warm_s']:7.4f}s  "
+                  f"({row['speedup_sharded']:.2f}x)  agree "
+                  f"{row['rel_param_diff']:.2e}  collectives "
+                  f"{row['collectives']}")
+    for row in rows:
+        check_sharded_row(row)
+    out = {"bench": "fed_engine_sharded_vs_vmap", **device_meta(dev),
+           "invariants": {
+               "agreement_tol": "1e-5 at rounds<=5; 1e-2 sanity bound on the "
+                                "rounds=20 rows (fp32 reduction order, "
+                                "amplified by adamw)",
+               "collectives": "weighted aggregators: (param_leaves + 1) "
+                              "all-reduce operands per hierarchy level; "
+                              "robust: (param_leaves + 1) all-gather "
+                              "operands + 1 loss all-reduce"},
+           "cases": rows}
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"-> {out_path}")
+    return out
+
+
 def run(fast: bool = False, device: DeviceLike = None) -> List[Dict]:
     cases = ([(2, 5), (8, 5)] if fast
              else [(d, r) for d in (2, 8, 32) for r in (5, 20)])
@@ -176,16 +294,34 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--out-dir", default=OUT_DIR)
     ap.add_argument("--sharded", action="store_true",
-                    help="sharded-vs-vmap rows (not ported)")
+                    help="sharded-vs-vmap rows at 1 and --ranks ranks")
     ap.add_argument("--sharded-worker", action="store_true",
-                    help=argparse.SUPPRESS)
+                    help="one sharded case (--d, --rounds, --aggregator) "
+                         "on --ranks ranks, its row to "
+                         "BENCH_fed_sharded_row.json")
+    ap.add_argument("--ranks", type=int, default=DEFAULT_RANKS)
+    ap.add_argument("--d", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--aggregator", default="fedavg")
     args = ap.parse_args(argv)
-    if args.sharded or args.sharded_worker:
-        raise NotImplementedError(
-            "fed_bench --sharded compares sharded plans with unsharded "
-            "ones; silo sharding is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1, multi-process silo sharding)")
     dev = resolve_device(args.device)
+    if args.sharded_worker:
+        row = run_ranks(
+            "repro_torch.benchmarks.fed_bench:bench_sharded_cases",
+            args.ranks, args=([(args.d, args.rounds, args.aggregator)], 3,
+                              None if dev.type == "cuda" else "cpu"),
+            device=dev)[0][0]
+        check_sharded_row(row)
+        out_path = os.path.join(args.out_dir, "BENCH_fed_sharded_row.json")
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(row, f, indent=1)
+        return row
+    if args.sharded:
+        return run_sharded(args.fast, args.ranks,
+                           os.path.join(args.out_dir,
+                                        "BENCH_fed_sharded.json"),
+                           device=dev)
     out = {"bench": "fed_engine_scan_vs_host", **device_meta(dev),
            "fast": args.fast, "cases": run(fast=args.fast, device=dev)}
     os.makedirs(args.out_dir, exist_ok=True)

@@ -47,7 +47,19 @@ schedule, carry and loss) is zeroed. ``lower_fl_plan`` binds a plan to one
 tenant's arguments for ``analysis.hlo_audit``, which checks both that a
 plan answers from its arguments and that an idle plan holds only splats.
 
-Not in this port yet: mesh sharding (``mesh=`` raises NotImplementedError).
+Step 4 across DC-server processes (``mesh=``, scan engine only): every
+rank of a ``repro_torch.launch.mesh`` mesh calls ``run_federated`` with
+the same arguments and keeps only its shard of the padded silo stack
+(padded to a multiple of the shard count with empty, exactly no-op
+silos) on its device. A round splits at its boundary: the local phase
+and the shard's partial weighted sums (a robust aggregator: its silos'
+submissions) run as one function (on CUDA one captured graph), the
+collective runs between replays over the mesh's gloo sub-groups through
+host memory (``SiloComm``: one combined buffer per level, innermost silo
+axis first), and the boundary's rest runs after it (a second graph).
+Every rank returns the same replicated result. ``SiloComm.census`` counts
+the collectives' operands by kind, the record
+``analysis.hlo_audit.collective_census`` reads.
 """
 from __future__ import annotations
 
@@ -59,6 +71,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import capture, zero_buffers
@@ -402,11 +415,16 @@ def _make_silo_step(batch_loss, opt: Optimizer, masked: bool = False):
     return step
 
 
-def _weighted_silo_mean(stacked: Any, wn: torch.Tensor) -> Any:
-    """Sample-weighted mean over the leading silo dim (wn sums to 1)."""
+def _weighted_silo_sum(stacked: Any, wn: torch.Tensor) -> Any:
+    """Sample-weighted sum over the leading silo dim, fp32: the mean when
+    wn sums to 1 over it, a mesh shard's part of the mean when wn is its
+    slice of weights summing to 1 over the global silo dim."""
     return tree_map(
-        lambda a: torch.tensordot(wn, a.float(), dims=([0], [0])).to(a.dtype),
-        stacked)
+        lambda a: torch.tensordot(wn, a.float(), dims=([0], [0])), stacked)
+
+
+def _cast_like(tree: Any, ref: Any) -> Any:
+    return tree_map(lambda a, r: a.to(r.dtype), tree, ref)
 
 
 def _stack_trees(trees: Sequence[Any]) -> Any:
@@ -421,23 +439,33 @@ def _stacked_opt_init(opt: Optimizer, params: Any, d: int) -> Any:
 
 
 def round_perms(seed: int, rnd: int, num_silos: int, epochs: int,
-                n_slots: int) -> np.ndarray:
+                n_slots: int, silo_ids: Optional[Sequence[int]] = None
+                ) -> np.ndarray:
     """The port's own minibatch schedule for one round, (d, epochs, n_slots)
     int64, drawn with numpy from (seed, round). It is NOT the reference's
-    ``jax.random`` schedule; parity runs inject that one instead."""
+    ``jax.random`` schedule; parity runs inject that one instead.
+    `silo_ids` picks rows of the (num_silos, …) draw: a mesh shard holding
+    silos [4..7] passes its GLOBAL ids, so its streams are bit for bit the
+    unsharded engine's."""
     rng = np.random.default_rng([int(seed), int(rnd)])
-    return np.stack([np.stack([rng.permutation(n_slots)
-                               for _ in range(epochs)])
-                     for _ in range(num_silos)])
+    perms = np.stack([np.stack([rng.permutation(n_slots)
+                                for _ in range(epochs)])
+                      for _ in range(num_silos)])
+    return perms if silo_ids is None else perms[np.asarray(silo_ids)]
 
 
 Schedule = Union[np.ndarray, Callable[[int], np.ndarray]]
 
 
 def _schedule_fn(schedule: Optional[Schedule], seed: int, d: int, epochs: int,
-                 n_slots: int, rounds: int) -> Callable[[int], np.ndarray]:
+                 n_slots: int, rounds: int,
+                 rows: Optional[slice] = None) -> Callable[[int], np.ndarray]:
+    """rnd -> this round's (d, epochs, n_slots) schedule; with `rows` (a
+    mesh shard's silos) only those rows of the global one."""
+    ids = None if rows is None else np.arange(d)[rows]
     if schedule is None:
-        return lambda rnd: round_perms(seed, rnd, d, epochs, n_slots)
+        return lambda rnd: round_perms(seed, rnd, d, epochs, n_slots,
+                                       silo_ids=ids)
     if callable(schedule):
         fn = schedule
     else:
@@ -454,9 +482,243 @@ def _schedule_fn(schedule: Optional[Schedule], seed: int, d: int, epochs: int,
             raise ValueError(f"schedule for round {rnd} must be (d, epochs, "
                              f"n_slots) = {(d, epochs, n_slots)}; got "
                              f"{perms.shape}")
-        return perms.astype(np.int64)
+        return (perms if ids is None else perms[ids]).astype(np.int64)
 
     return checked
+
+
+# ==========================================================================
+# 1a. Mesh plumbing for sharded plans: the round boundary across ranks
+# ==========================================================================
+
+def default_silo_axes(mesh) -> Tuple[str, ...]:
+    """Mesh axes the padded silo dim shards over. When the mesh has both
+    "pod" and "data" axes the silo dim spans them jointly and the round
+    boundary aggregates hierarchically (intra-pod over "data" first,
+    cross-pod over "pod" second). A "model" axis is never a silo axis:
+    model-parallel ranks inside one silo group hold the same silos."""
+    names = tuple(mesh.axis_names)
+    both = tuple(a for a in ("pod", "data") if a in names)
+    return both if both else names[:1]
+
+
+def _mesh_axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _shard_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's silo shard: its coordinates over `axes`, row-major, so
+    shard k holds silos [k·d/shards, (k+1)·d/shards) in global order."""
+    sizes = _mesh_axis_sizes(mesh)
+    return int(np.ravel_multi_index([mesh.coordinate(a) for a in axes],
+                                    [sizes[a] for a in axes]))
+
+
+def num_silo_shards(mesh, silo_axes: Optional[Sequence[str]] = None) -> int:
+    """How many ways a sharded plan splits the silo axis (the padded silo
+    count must be a multiple of this; run_federated pads it up)."""
+    axes = tuple(silo_axes) if silo_axes else default_silo_axes(mesh)
+    sizes = _mesh_axis_sizes(mesh)
+    missing = [a for a in axes if a not in sizes]
+    if missing:
+        raise ValueError(f"silo axes {missing} not in mesh axes "
+                         f"{tuple(mesh.axis_names)}")
+    return int(np.prod([sizes[a] for a in axes]))
+
+
+@dataclass(frozen=True)
+class _Leaf:
+    """Shape and dtype of one operand of a combined buffer."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _layout(tree: Any) -> Any:
+    return tree_map(lambda a: _Leaf(tuple(a.shape), a.dtype), tree)
+
+
+def _pack(tree: Any) -> torch.Tensor:
+    """A tree's leaves, in order, as one flat fp32 buffer."""
+    return torch.cat([a.reshape(-1).float() for a in tree_leaves(tree)])
+
+
+def _unpack(flat: torch.Tensor, layout: Any, rows: int = 0) -> Any:
+    """`_pack`'s inverse for `layout`; with `rows`, every leaf's leading
+    dim is `rows` (a gathered silo stack) instead of its own."""
+    sizes = [int(np.prod(((rows,) + l.shape[1:]) if rows else l.shape))
+             for l in tree_leaves(layout)]
+    parts = iter(torch.split(flat, sizes))
+    return tree_map(lambda l: next(parts).reshape(
+        ((rows,) + l.shape[1:]) if rows else l.shape).to(l.dtype), layout)
+
+
+class SiloComm:
+    """The collectives of a sharded plan's round boundary, for one rank of
+    `mesh`, over the silo axes' gloo sub-groups.
+
+    A collective takes one combined fp32 buffer (a tree's leaves packed,
+    ``_pack``) and runs one operation per level, innermost silo axis first
+    (an axis of one rank is no level). The buffer goes through host
+    memory: on CUDA it is copied to pinned staging buffers and back,
+    explicitly, and those bytes are counted (``staged_bytes``); the silo
+    compute stays on the device. The staging buffers belong to the plan and
+    are zeroed with its other buffers (``release``).
+
+    ``census`` is the current round's record, {kind: operands}: one per
+    leaf of the combined tree per level, the count a census of the
+    reference's compiled round gives (it counts operands, since a combined
+    collective is one op with many)."""
+
+    def __init__(self, mesh, axes: Sequence[str], device: torch.device):
+        if not mesh.contains():
+            raise ValueError(f"{mesh!r}: this rank holds no shard")
+        sizes = _mesh_axis_sizes(mesh)
+        self.mesh, self.axes, self.device = mesh, tuple(axes), device
+        self.shards = num_silo_shards(mesh, axes)
+        self.shard = _shard_index(mesh, self.axes)
+        self.levels = [(a, sizes[a]) for a in reversed(self.axes)
+                       if sizes[a] > 1]
+        self._staging: Dict[Tuple, torch.Tensor] = {}
+        self.census: Dict[str, int] = {}
+        self.reset()
+
+    def rebind(self, mesh) -> None:
+        """Run the collectives over `mesh`'s groups from now on: a cached
+        plan built on an earlier mesh of the same signature (whose groups
+        may since have been destroyed) serves a run on this one. This
+        rank's shard must be the same on both."""
+        shard = _shard_index(mesh, self.axes)
+        if shard != self.shard:
+            raise ValueError(f"{mesh!r} puts this rank on silo shard "
+                             f"{shard}; the plan holds shard {self.shard}")
+        self.mesh = mesh
+
+    def reset(self) -> None:
+        """Zero the cost counters (a plan's run starts with this)."""
+        self.rounds = 0
+        self.seconds = 0.0
+        self.staged_bytes = 0      # device <-> pinned host copies
+        self.wire_bytes = 0        # this rank's buffers handed to gloo
+
+    def _buf(self, key: Tuple, n: int) -> torch.Tensor:
+        buf = self._staging.get(key)
+        if buf is None or buf.numel() != n:
+            buf = self._staging[key] = torch.empty(
+                n, dtype=torch.float32,
+                pin_memory=self.device.type == "cuda")
+        return buf
+
+    def _stage(self, kind: str, flat: torch.Tensor) -> torch.Tensor:
+        host = self._buf((kind, 0), flat.numel())
+        host.copy_(flat)
+        if flat.is_cuda:
+            self.staged_bytes += host.numel() * 4
+        return host
+
+    def _land(self, host: torch.Tensor,
+              out: Optional[torch.Tensor]) -> torch.Tensor:
+        if out is None:
+            return host.to(self.device, copy=True)
+        out.copy_(host)
+        if out.is_cuda:
+            self.staged_bytes += host.numel() * 4
+        return out
+
+    def _count(self, kind: str, operands: int) -> None:
+        self.census[kind] = self.census.get(kind, 0) \
+            + operands * len(self.levels)
+
+    def begin_round(self) -> None:
+        self.census = {}
+        self.rounds += 1
+
+    def _start(self, flat: torch.Tensor) -> float:
+        """The clock at a collective's start, once the device has produced
+        `flat`: the local phase's time is not the collective's."""
+        if flat.is_cuda:
+            torch.cuda.current_stream(flat.device).synchronize()
+        return time.perf_counter()
+
+    def psum(self, flat: torch.Tensor, operands: int,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sum `flat` over every shard (all-reduce per level)."""
+        t0 = self._start(flat)
+        host = self._stage("all-reduce", flat)
+        for ax, _ in self.levels:
+            dist.all_reduce(host, group=self.mesh.group(ax))
+            self.wire_bytes += host.numel() * 4
+        self._count("all-reduce", operands)
+        out = self._land(host, out)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def all_gather(self, flat: torch.Tensor, rows: int,
+                   row_sizes: Sequence[int],
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Gather `flat` (operands of (rows, row_size) each, packed in
+        order) from every shard along the silo dim, in global silo order:
+        each level's members are this level's coordinate order, and every
+        operand is repacked member after member before the next level."""
+        t0 = self._start(flat)
+        host = self._stage("all-gather", flat)
+        for lvl, (ax, k) in enumerate(self.levels):
+            n = host.numel()
+            got = self._buf(("all-gather-recv", lvl), k * n).view(k, n)
+            dist.all_gather(list(got), host, group=self.mesh.group(ax))
+            self.wire_bytes += n * 4
+            nxt = self._buf(("all-gather", lvl + 1), k * n)
+            src = dst = 0
+            for size in row_sizes:
+                seg = rows * size
+                nxt[dst:dst + k * seg].view(k, seg).copy_(
+                    got[:, src:src + seg])
+                src, dst = src + seg, dst + k * seg
+            rows, host = rows * k, nxt
+        self._count("all-gather", len(row_sizes))
+        out = self._land(host, out)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def release(self) -> None:
+        zero_buffers(list(self._staging.values()))
+
+    def stats(self) -> Dict[str, Any]:
+        n = max(self.rounds, 1)
+        return {"census": dict(self.census), "axes": list(self.axes),
+                "levels": [a for a, _ in self.levels], "shards": self.shards,
+                "shard": self.shard, "rounds": self.rounds,
+                "collective_s": self.seconds,
+                "collective_ms_per_round": 1e3 * self.seconds / n,
+                "staged_bytes_per_round": self.staged_bytes / n,
+                "wire_bytes_per_round": self.wire_bytes / n}
+
+
+def _gather_rows(tree: Any) -> Tuple[int, List[int]]:
+    """(rows, per-row numel of each leaf) of a silo-stacked tree."""
+    leaves = tree_leaves(tree)
+    rows = leaves[0].shape[0]
+    return rows, [l.numel() // rows for l in leaves]
+
+
+def _psum_tree(tree: Any, comm: SiloComm) -> Any:
+    """Hierarchical all-reduce at the round boundary: the tree's leaves
+    summed over every shard, as one combined buffer per level, innermost
+    axis first. The only collective of a sharded plan with a WEIGHTED
+    aggregator."""
+    return _unpack(comm.psum(_pack(tree), len(tree_leaves(tree))),
+                   _layout(tree))
+
+
+def _all_gather_tree(tree: Any, comm: SiloComm) -> Any:
+    """Hierarchical all-gather of a silo-stacked tree along dim 0 at a
+    ROBUST round boundary: order statistics need every silo's submission,
+    which a sum of partial sums cannot give. Every shard ends with the
+    whole (d, …) stack in global silo order (Krum's pick and the order
+    statistics depend on that order) and computes the robust aggregate
+    redundantly on it."""
+    rows, row_sizes = _gather_rows(tree)
+    flat = comm.all_gather(_pack(tree), rows, row_sizes)
+    return _unpack(flat, _layout(tree), rows * comm.shards)
 
 
 # ==========================================================================
@@ -596,6 +858,9 @@ class FLResult:
     # warm-up and capture (0 without one), "rounds_s": every round, the
     # final fetches included}
     timings: Optional[Dict[str, float]] = None
+    # sharded scan engine: the last round's census, {kind: operands}, and
+    # the collectives' cost (``SiloComm.stats``)
+    collectives: Optional[Dict[str, Any]] = None
 
 
 def fedavg_average(params_list: Sequence[Any], weights: Sequence[float]) -> Any:
@@ -605,11 +870,6 @@ def fedavg_average(params_list: Sequence[Any], weights: Sequence[float]) -> Any:
         lambda *ps: sum(float(wi) * p.float()
                         for wi, p in zip(w, ps)).to(ps[0].dtype),
         *params_list)
-
-
-def _not_in_port(what: str, queue: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, {queue})")
 
 
 def _plan_cache_of(cache: Any, engine: str) -> Optional[PlanCache]:
@@ -623,17 +883,24 @@ def _plan_cache_of(cache: Any, engine: str) -> Optional[PlanCache]:
 
 def padded_layout(silo_data: Sequence[Tuple[np.ndarray, np.ndarray]], *,
                   batch_size: int = 32, aggregator: str = "fedavg",
-                  cache: Any = None, pad_fill: float = 0.0) -> PaddedSilos:
+                  cache: Any = None, pad_fill: float = 0.0,
+                  shards: int = 1) -> PaddedSilos:
     """The padded layout run_federated trains on. With a plan cache the
     silo count and (fedsgd: the full batch, else the batch count) are
     rounded up to its buckets: by default d' = bucket_pow2(d) silos and
-    n_slots' = batch_size · bucket_pow2(⌈n_max / batch_size⌉) slots. An
-    injected schedule is (rounds, d', local_epochs, n_slots') at it."""
+    n_slots' = batch_size · bucket_pow2(⌈n_max / batch_size⌉) slots. A
+    mesh of `shards` silo shards rounds d' up to a multiple of it (empty
+    silos: exact no-ops). An injected schedule is (rounds, d',
+    local_epochs, n_slots') at it."""
+    def shard_multiple(d: int) -> int:
+        return -(-d // shards) * shards
+
     plan_cache = _plan_cache_of(cache, "scan")
     if plan_cache is None:
         return pad_silo_data(silo_data,
                              None if aggregator == "fedsgd" else batch_size,
-                             fill=pad_fill)
+                             fill=pad_fill,
+                             min_silos=shard_multiple(len(silo_data)))
     n_max = max(np.asarray(x).shape[0] for x, _ in silo_data)
     if aggregator == "fedsgd":
         bs_eff: Optional[int] = plan_cache.bucket_batches(n_max)
@@ -641,8 +908,9 @@ def padded_layout(silo_data: Sequence[Tuple[np.ndarray, np.ndarray]], *,
     else:
         bs_eff = batch_size
         min_nb = plan_cache.bucket_batches(-(-n_max // batch_size))
-    return pad_silo_data(silo_data, bs_eff, fill=pad_fill, min_batches=min_nb,
-                         min_silos=plan_cache.bucket_silos(len(silo_data)))
+    return pad_silo_data(
+        silo_data, bs_eff, fill=pad_fill, min_batches=min_nb,
+        min_silos=shard_multiple(plan_cache.bucket_silos(len(silo_data))))
 
 
 def run_federated(
@@ -667,6 +935,7 @@ def run_federated(
     loss_id: Optional[Tuple] = None,
     opt_id: Optional[Tuple] = None,
     mesh=None,
+    silo_axes: Optional[Sequence[str]] = None,
     eval_chunk: int = 8,
     dropout_rate: float = 0.0,
     availability: Optional[np.ndarray] = None,
@@ -707,20 +976,49 @@ def run_federated(
     train nothing that round and carry zero weight; silo_scale
     (num_real_silos,) multiplies each silo's submitted round delta (1.0 is
     an exact no-op).
+
+    mesh (scan engine only; a ``repro_torch.launch.mesh`` mesh, built on
+    every rank) runs the FL phase across the mesh's ranks, each rank
+    calling run_federated with the same arguments: the padded silo count
+    is rounded up to a multiple of the silo-shard count (silo_axes,
+    default ``default_silo_axes``: ("pod", "data") jointly when both
+    exist) with empty no-op silos, each rank trains only its shard's silos
+    on its device (their rows of the global schedule and weights, which
+    are normalized over all silos on the host), and the round boundary is
+    the only place ranks talk (``SiloComm``). Every rank returns the same
+    replicated result, its ``collectives`` the round's census and cost;
+    eval_fn runs on every rank on the global params.
     """
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}; "
                          f"choose one of {AGGREGATORS}")
     if engine not in ("host", "scan"):
         raise ValueError(f"unknown engine {engine!r}; choose 'host' or 'scan'")
+    if mesh is not None and engine != "scan":
+        raise ValueError("mesh=... requires engine='scan' — the host engine "
+                         "is a per-batch dispatch loop and cannot shard the "
+                         "silo axis")
+    axes: Optional[Tuple[str, ...]] = None
+    shards, rows = 1, None
     if mesh is not None:
-        raise _not_in_port("mesh= (silo sharding)", "Queue 1, sharding")
+        from repro_torch.launch.mesh import HostMesh
+        if not isinstance(mesh, HostMesh):
+            raise TypeError(
+                f"mesh must be a repro_torch.launch.mesh.HostMesh "
+                f"(make_host_mesh / make_mesh on every rank), not "
+                f"{type(mesh).__name__}")
+        axes = tuple(silo_axes) if silo_axes else default_silo_axes(mesh)
+        shards = num_silo_shards(mesh, axes)
     plan_cache = _plan_cache_of(cache, engine)
     dev = resolve_device(device)
     padded = padded_layout(silo_data, batch_size=batch_size,
                            aggregator=aggregator, cache=plan_cache,
-                           pad_fill=pad_fill)
-    data = _to_device(padded, dev)
+                           pad_fill=pad_fill, shards=shards)
+    if mesh is not None:
+        dl = padded.num_silos // shards
+        shard = _shard_index(mesh, axes)
+        rows = slice(shard * dl, (shard + 1) * dl)
+    data = _to_device(padded, dev, rows)
     if per_example is None:
         per_example = _detect_per_example(loss_fn, init_params, data,
                                           padded.batch_size)
@@ -766,7 +1064,7 @@ def run_federated(
     mu = fedprox_mu if aggregator == "fedprox" else 0.0
     batch_loss = _make_batch_loss(loss_fn, per_example, mu)
     sched = _schedule_fn(schedule, seed, padded.num_silos, local_epochs,
-                         padded.n_slots, rounds)
+                         padded.n_slots, rounds, rows)
     run_kw = dict(opt=opt, rounds=rounds, local_epochs=local_epochs,
                   aggregator=aggregator, schedule=sched, eval_fn=eval_fn,
                   per_example=per_example, reset_opt=reset_opt_per_round,
@@ -777,8 +1075,12 @@ def run_federated(
                          masked=needs_mask, **run_kw)
     if plan_cache is None:
         return _run_scan(batch_loss, init_params, padded, data,
-                         eval_chunk=eval_chunk, masked=needs_mask, **run_kw)
+                         eval_chunk=eval_chunk, masked=needs_mask,
+                         mesh=mesh, silo_axes=axes, **run_kw)
     mode = "chunk" if eval_fn is not None else "none"
+    # a sharded and an unsharded plan never share a key, nor two plans on
+    # meshes of other shapes, axis names or silo axes
+    mesh_sig = None if mesh is None else mesh.signature() + (axes,)
     key = (
         padded.num_silos, padded.num_batches, padded.batch_size,
         tuple(padded.X.shape[2:]), str(padded.X.dtype),
@@ -792,7 +1094,7 @@ def run_federated(
         (float(trim_frac), int(krum_f)) if robust else None,
         loss_id if loss_id is not None else ("id", id(loss_fn)),
         opt_id if opt_id is not None else ("id", id(opt)),
-        str(dev),
+        str(dev), mesh_sig,
     )
     plan, was_hit = plan_cache.lookup(
         key,
@@ -801,8 +1103,11 @@ def run_federated(
             batch_size=padded.batch_size, opt=opt, batch_loss=batch_loss,
             local_epochs=local_epochs, aggregator=aggregator,
             per_example=per_example, reset_opt=reset_opt_per_round,
-            masked=True, trim_frac=trim_frac, krum_f=krum_f, device=dev),
+            masked=True, trim_frac=trim_frac, krum_f=krum_f, device=dev,
+            mesh=mesh, silo_axes=axes),
         pins=(loss_fn, opt))
+    if mesh is not None:
+        plan.comm.rebind(mesh)
     captures, replays = plan.captures, plan.replays
     try:
         res = _run_scan(batch_loss, init_params, padded, data, plan=plan,
@@ -814,13 +1119,15 @@ def run_federated(
     return res
 
 
-def _to_device(padded: PaddedSilos, dev: torch.device):
+def _to_device(padded: PaddedSilos, dev: torch.device,
+               rows: Optional[slice] = None):
     """The padded stack on the device once: X fp32, Y fp32 (regression) or
-    int64 (labels), w fp32."""
-    X = torch.as_tensor(padded.X, device=dev)
-    Y = torch.as_tensor(padded.Y, device=dev)
+    int64 (labels), w fp32; with `rows`, only a mesh shard's silos."""
+    rows = slice(None) if rows is None else rows
+    X = torch.as_tensor(padded.X[rows], device=dev)
+    Y = torch.as_tensor(padded.Y[rows], device=dev)
     Y = Y.float() if Y.is_floating_point() else Y.long()
-    w = torch.as_tensor(padded.w, device=dev)
+    w = torch.as_tensor(padded.w[rows], device=dev)
     return X, Y, w
 
 
@@ -876,7 +1183,7 @@ def _run_host(batch_loss, init_params, padded: PaddedSilos, data, *, opt,
             if scale is not None:
                 g = tree_map(lambda a: (a.float() * _per_silo(scale, a))
                              .to(a.dtype), g)
-            g = _weighted_silo_mean(g, wr_t)
+            g = _cast_like(_weighted_silo_sum(g, wr_t), gp)
             updates, fedsgd_state = opt.update(g, fedsgd_state, gp)
             gp = apply_updates(gp, updates)
             round_loss = float(torch.sum(wr_t * torch.stack(losses)))
@@ -924,7 +1231,7 @@ def _run_host(batch_loss, init_params, padded: PaddedSilos, data, *, opt,
                 gp = robust_aggregate(sp, mask, aggregator,
                                       trim_frac=trim_frac, krum_f=krum_f)
             else:
-                gp = _weighted_silo_mean(sp, wr_t)
+                gp = _cast_like(_weighted_silo_sum(sp, wr_t), gp)
             round_loss = float(np.sum(np.asarray(wr_r, np.float64) * final_losses))
         rec = {"round": rnd, "loss": round_loss}
         if eval_fn is not None:
@@ -937,24 +1244,15 @@ def _run_host(batch_loss, init_params, padded: PaddedSilos, data, *, opt,
 # 2b. engine="scan": one round as a plan, captured once and replayed
 # --------------------------------------------------------------------------
 
-def _make_round_step(*, num_batches: int, batch_size: int, opt: Optimizer,
-                     batch_loss, local_epochs: int, aggregator: str,
-                     per_example: bool, reset_opt: bool, masked: bool,
-                     trim_frac: float, krum_f: int):
-    """``round_step(carry, perms, X, Y, w, wr_r, scale) -> (carry,
-    round_loss, global_params)``: one full round over the silo stack, all
-    device tensors in and out (perms (d, E, n_slots) this round's
-    schedule, None for fedsgd; wr_r (d,) this round's weights, zero for a
-    silo that is unavailable or empty; scale (d,) the delta multipliers).
-    Nothing in it syncs with the host or copies from it, so it can be
-    captured in a CUDA graph."""
+def _make_local_phase(silo_step, *, num_batches: int, batch_size: int,
+                      local_epochs: int, per_example: bool):
+    """``local_phase(gp, so, perms, X, Y, w)``: E epochs × nb batches of
+    vmapped silo steps over the silos it is given (a mesh shard's, or
+    all); returns trained silo params / opt state and each silo's
+    final-epoch loss. No collective, no host sync."""
     nb, bs, E = num_batches, batch_size, local_epochs
-    silo_step = _make_silo_step(batch_loss, opt, masked=masked)
-    robust = aggregator in ROBUST_AGGREGATORS
 
     def local_phase(gp, so, perms, X, Y, w):
-        """E epochs × nb batches of vmapped silo steps; returns trained
-        silo params / opt state and each silo's final-epoch loss."""
         dl = perms.shape[0]
         rows = torch.arange(dl, device=perms.device)[:, None]
         bidx = perms.reshape(dl, E, nb, bs)
@@ -974,29 +1272,59 @@ def _make_round_step(*, num_batches: int, batch_size: int, opt: Optimizer,
             torch.stack(ws).sum(0), min=_DEN_EPS)
         return sp, so, ep_loss
 
-    def boundary(sp, gp, wr_r, scale):
-        sp = apply_silo_scale(sp, gp, scale)
-        if not robust:
-            return _weighted_silo_mean(sp, wr_r)
-        return robust_aggregate(sp, (wr_r > 0).float(), aggregator,
-                                trim_frac=trim_frac, krum_f=krum_f)
+    return local_phase
+
+
+def _make_round(*, num_batches: int, batch_size: int, opt: Optimizer,
+                batch_loss, local_epochs: int, aggregator: str,
+                per_example: bool, reset_opt: bool, masked: bool,
+                trim_frac: float, krum_f: int):
+    """One round over the silo stack a plan holds (all of it, or a mesh
+    shard's rows), split at its boundary as ``(local, finish)``.
+
+    ``local(carry, perms, X, Y, w, wr_r, scale) -> (carry, sends)`` trains
+    the silos (perms (dl, E, n_slots) this round's schedule, None for
+    fedsgd; wr_r (dl,) this round's weights, zero for a silo that is
+    unavailable or empty; scale (dl,) the delta multipliers) and returns
+    what crosses the boundary, ``{"all-reduce": tree, "all-gather":
+    silo-stacked tree}`` (a kind absent: None). ``finish(carry, recvs) ->
+    (carry, round_loss, global_params)`` takes what came back. Unsharded,
+    recvs is sends; sharded, the collectives come between (``SiloComm``).
+    Weighted aggregators send their weighted sums and the loss (fedsgd:
+    the weighted gradient; every rank then takes the same optimizer
+    step); robust ones gather the scaled submissions and the availability
+    mask, and reduce only the loss. All device tensors in and out: nothing
+    syncs with the host or copies from it, so each half can be captured
+    in a CUDA graph."""
+    local_phase = _make_local_phase(
+        _make_silo_step(batch_loss, opt, masked=masked),
+        num_batches=num_batches, batch_size=batch_size,
+        local_epochs=local_epochs, per_example=per_example)
+    robust = aggregator in ROBUST_AGGREGATORS
 
     if aggregator == "fedsgd":
         silo_loss = torch.func.vmap(batch_loss, in_dims=(0, 0, 0, 0, None))
 
-        def round_step(carry, perms, X, Y, w, wr_r, scale):
-            gp, fs = carry
+        def local(carry, perms, X, Y, w, wr_r, scale):
+            gp, _ = carry
             grads, losses = _grads_and_loss(
                 lambda q: silo_loss(q, X, Y, w, gp),
                 silo_replicate(gp, X.shape[0]))
             grads = tree_map(lambda a: (a.float() * _per_silo(scale, a))
                              .to(a.dtype), grads)
-            updates, fs = opt.update(_weighted_silo_mean(grads, wr_r), fs, gp)
-            gp = apply_updates(gp, updates)
-            return (gp, fs), torch.sum(wr_r * losses), gp
-        return round_step
+            return carry, {"all-reduce": (_weighted_silo_sum(grads, wr_r),
+                                          torch.sum(wr_r * losses)),
+                           "all-gather": None}
 
-    def round_step(carry, perms, X, Y, w, wr_r, scale):
+        def finish(carry, recvs):
+            gp, fs = carry
+            g, loss = recvs["all-reduce"]
+            updates, fs = opt.update(_cast_like(g, gp), fs, gp)
+            gp = apply_updates(gp, updates)
+            return (gp, fs), loss, gp
+        return local, finish
+
+    def local(carry, perms, X, Y, w, wr_r, scale):
         # absent silos get all-zero masks: every batch is an exact no-op
         w_eff = w * (wr_r > 0).to(w.dtype)[:, None]
         if reset_opt:
@@ -1005,18 +1333,35 @@ def _make_round_step(*, num_batches: int, batch_size: int, opt: Optimizer,
         else:
             gp, so = carry
         sp, so, final_losses = local_phase(gp, so, perms, X, Y, w_eff)
-        gp = boundary(sp, gp, wr_r, scale)
+        sp = apply_silo_scale(sp, gp, scale)
         loss = torch.sum(wr_r * final_losses)
-        return (gp if reset_opt else (gp, so)), loss, gp
-    return round_step
+        carry = gp if reset_opt else (gp, so)
+        if robust:
+            return carry, {"all-reduce": loss,
+                           "all-gather": (sp, (wr_r > 0).float())}
+        return carry, {"all-reduce": (_weighted_silo_sum(sp, wr_r), loss),
+                       "all-gather": None}
+
+    def finish(carry, recvs):
+        gp = carry if reset_opt else carry[0]
+        if robust:
+            sp, mask = recvs["all-gather"]
+            new, loss = robust_aggregate(sp, mask, aggregator,
+                                         trim_frac=trim_frac,
+                                         krum_f=krum_f), recvs["all-reduce"]
+        else:
+            part, loss = recvs["all-reduce"]
+            new = _cast_like(part, gp)
+        return (new if reset_opt else (new, carry[1])), loss, new
+    return local, finish
 
 
 class FLPlan:
     """A scan-engine PLAN (``make_fl_plan``): one round of the FL phase over
-    a (num_silos, num_batches · batch_size, …) padded stack as a torch
-    function (``round_step``), plus how it runs: on CUDA, captured once
-    into a ``torch.cuda.CUDAGraph`` over static buffers and replayed each
-    round; elsewhere, eagerly.
+    a (num_silos, num_batches · batch_size, …) padded stack as torch
+    functions (``local`` and ``finish``, ``_make_round``), plus how it
+    runs: on CUDA, captured once into a ``torch.cuda.CUDAGraph`` over
+    static buffers and replayed each round; elsewhere, eagerly.
 
     All tenant data, the per-round weights wr (a zero entry drops a silo
     for that round), the delta scales and the schedule are run-time
@@ -1025,14 +1370,24 @@ class FLPlan:
     config (trim_frac / krum_f) is part of it. Rounds never enter a plan,
     so one plan serves every round budget and every eval chunk.
 
-    The buffers (silo stack, carry, one round's perms and weights, scale)
-    are allocated by the first run and sized by it; a later run must have
-    the same padded shapes (the plan cache guarantees it) and copies its
-    tenant in. Every run ends by zeroing them (``_release``), so a plan
-    waiting in the cache for its next tenant holds none of the last one's
-    data. `captures` / `replays` count graphs captured and rounds
-    replayed. A plan is not re-entrant: run() while another run() of the
-    same plan is live raises.
+    With a `mesh` the plan is one rank's shard (``mesh=`` of
+    ``run_federated``): num_silos is the GLOBAL padded count, a multiple of
+    the silo-shard count, and the plan's arguments are its shard's rows
+    (``rows``, ``local_silos`` of them), and ``comm`` (a ``SiloComm``)
+    runs the collectives between ``local`` and ``finish``: on CUDA each
+    half is one captured graph, and the collective runs between their
+    replays, outside both. Unsharded, what ``local`` sends is what
+    ``finish`` receives, and the round is one graph.
+
+    The buffers (silo stack, carry, one round's perms and weights, scale;
+    sharded: the combined send and receive buffers) are allocated by the
+    first run and sized by it; a later run must have the same padded
+    shapes (the plan cache guarantees it) and copies its tenant in. Every
+    run ends by zeroing them, and the collectives' host staging buffers
+    with them (``_release``), so a plan waiting in the cache for its next
+    tenant holds none of the last one's data. `captures` / `replays` count
+    graphs captured and rounds replayed. A plan is not re-entrant: run()
+    while another run() of the same plan is live raises.
     """
 
     def __init__(self, *, num_silos: int, num_batches: int, batch_size: int,
@@ -1040,7 +1395,8 @@ class FLPlan:
                  aggregator: str = "fedavg", per_example: bool = True,
                  reset_opt: bool = True, masked: bool = True,
                  trim_frac: float = 0.2, krum_f: int = 1,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None,
+                 silo_axes: Optional[Sequence[str]] = None):
         self.num_silos = num_silos
         self.num_batches = num_batches
         self.batch_size = batch_size
@@ -1049,33 +1405,52 @@ class FLPlan:
         self.aggregator = aggregator
         self.reset_opt = reset_opt
         self.device = resolve_device(device)
-        self.round_step = _make_round_step(
-            num_batches=num_batches, batch_size=batch_size, opt=opt,
-            batch_loss=batch_loss, local_epochs=local_epochs,
-            aggregator=aggregator, per_example=per_example,
-            reset_opt=reset_opt, masked=masked, trim_frac=trim_frac,
-            krum_f=krum_f)
+        kw = dict(num_batches=num_batches, batch_size=batch_size, opt=opt,
+                  batch_loss=batch_loss, local_epochs=local_epochs,
+                  aggregator=aggregator, per_example=per_example,
+                  reset_opt=reset_opt, masked=masked, trim_frac=trim_frac,
+                  krum_f=krum_f)
+        self.comm: Optional[SiloComm] = None
+        self.local_silos, self.rows = num_silos, None
+        self.local, self.finish = _make_round(**kw)
+        if mesh is not None:
+            axes = tuple(silo_axes) if silo_axes else default_silo_axes(mesh)
+            shards = num_silo_shards(mesh, axes)
+            if num_silos % shards:
+                raise ValueError(
+                    f"num_silos={num_silos} is not divisible by the "
+                    f"{shards}-way silo mesh {axes}; pad the silo stack "
+                    "(pad_silo_data min_silos, as run_federated does) so "
+                    "every shard holds num_silos/shards silos")
+            self.comm = SiloComm(mesh, axes, self.device)
+            self.local_silos = num_silos // shards
+            lo = self.comm.shard * self.local_silos
+            self.rows = slice(lo, lo + self.local_silos)
         self.replays = 0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph2: Optional[torch.cuda.CUDAGraph] = None
+        self._sends: Optional[Dict[str, Any]] = None   # layouts of sends
         self._bufs: Optional[SimpleNamespace] = None
         self._live = False
         _note_plan_built()
 
     @property
     def captures(self) -> int:
-        """CUDA graphs this plan captured: 1 once its round is captured."""
-        return int(self._graph is not None)
+        """CUDA graphs this plan captured: its round's, once captured (a
+        sharded round: two, one each side of the collective)."""
+        return int(self._graph is not None) + int(self._graph2 is not None)
 
     # -- carry -----------------------------------------------------------
 
     def carry_init(self, init_params: Any) -> Any:
-        """The cross-round state for `init_params` (a private copy)."""
+        """The cross-round state for `init_params` (a private copy); a
+        shard's optimizer state holds its own silos only."""
         gp = tree_map(lambda a: a.detach().clone(), init_params)
         if self.aggregator == "fedsgd":
             return (gp, self.opt.init(gp))
         if self.reset_opt:
             return gp
-        return (gp, _stacked_opt_init(self.opt, gp, self.num_silos))
+        return (gp, _stacked_opt_init(self.opt, gp, self.local_silos))
 
     def carry_params(self, carry: Any) -> Any:
         own_state = self.aggregator == "fedsgd" or not self.reset_opt
@@ -1087,7 +1462,8 @@ class FLPlan:
             eval_fn: Optional[Callable[[Any], Dict[str, float]]] = None,
             eval_chunk: int = 8) -> FLResult:
         """Train `rounds` rounds from `init_params` on one tenant's device
-        arguments `args` = (X, Y, w, wr, scale, perms) (``_plan_args``)."""
+        arguments `args` = (X, Y, w, wr, scale, perms) (``_plan_args``; a
+        sharded plan's: its shard's rows, on every rank of the mesh)."""
         if self._live:
             raise RuntimeError(
                 "this FL plan is already running: a plan (and a cached "
@@ -1102,15 +1478,21 @@ class FLPlan:
     def _release(self) -> None:
         """Zero every buffer a run filled with tenant data: the silo stack
         (X, Y, w), this round's weights and schedule, the scales, the carry
-        and the loss. One fused fill per dtype per run; the next run copies
-        its own tenant into every one of them before its first replay."""
+        and the loss; a sharded plan's send and receive buffers (the
+        received stack holds every silo's submission) and its host staging
+        buffers. One fused fill per dtype per run; the next run copies its
+        own tenant into every one of them before its first replay."""
         b = self._bufs
         if b is not None:
             zero_buffers([b.carry, b.X, b.Y, b.w, b.wr, b.scale, b.perms,
-                          b.loss])
+                          b.loss, b.send, b.recv])
+        if self.comm is not None:
+            self.comm.release()
 
     def _run(self, init_params, args, rounds, eval_fn, eval_chunk):
         timings = {"bind_s": 0.0, "warmup_s": 0.0, "capture_s": 0.0}
+        if self.comm is not None:
+            self.comm.reset()
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             next_round, final = self._graph_rounds(init_params, args, timings)
@@ -1148,7 +1530,23 @@ class FLPlan:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         timings["rounds_s"] = time.perf_counter() - t1
-        return FLResult(params=params, history=history, timings=timings)
+        res = FLResult(params=params, history=history, timings=timings)
+        if self.comm is not None:
+            res.collectives = self.comm.stats()
+            timings["collective_s"] = self.comm.seconds
+        return res
+
+    def _exchange(self, sends: Dict[str, Any]) -> Dict[str, Any]:
+        """The round boundary's collectives on the trees `local` sent
+        (eager): the gather first, then the all-reduce, on every rank;
+        unsharded, none."""
+        if self.comm is None:
+            return sends
+        self.comm.begin_round()
+        gathered = sends["all-gather"]
+        return {"all-gather": None if gathered is None
+                else _all_gather_tree(gathered, self.comm),
+                "all-reduce": _psum_tree(sends["all-reduce"], self.comm)}
 
     def _eager_rounds(self, init_params, args):
         X, Y, w, wr, scale, perms = args
@@ -1156,9 +1554,9 @@ class FLPlan:
 
         def next_round(rnd):
             nonlocal carry
-            carry, loss, gp = self.round_step(
-                carry, None if perms is None else perms[rnd], X, Y, w,
-                wr[rnd], scale)
+            pr = None if perms is None else perms[rnd]
+            carry, sends = self.local(carry, pr, X, Y, w, wr[rnd], scale)
+            carry, loss, gp = self.finish(carry, self._exchange(sends))
             return loss, gp
 
         return next_round, lambda: self.carry_params(carry)
@@ -1171,7 +1569,7 @@ class FLPlan:
         b = self._bufs
         if b is None:
             b = self._bufs = SimpleNamespace(
-                carry=carry, loss=None,
+                carry=carry, loss=None, send=None, recv=None,
                 **{k: None if v is None else v.clone()
                    for k, v in new.items()})
         else:
@@ -1194,6 +1592,16 @@ class FLPlan:
                 b.perms.copy_(perms[rnd])
             b.wr.copy_(wr[rnd])
             self._graph.replay()
+            if self.comm is not None:
+                self.comm.begin_round()
+                gather = self._sends["all-gather"]
+                if gather is not None:
+                    self.comm.all_gather(b.send["all-gather"], *gather[1:],
+                                         out=b.recv["all-gather"])
+                self.comm.psum(b.send["all-reduce"],
+                               len(tree_leaves(self._sends["all-reduce"])),
+                               out=b.recv["all-reduce"])
+                self._graph2.replay()
             self.replays += 1
             return b.loss, self.carry_params(b.carry)
 
@@ -1202,19 +1610,60 @@ class FLPlan:
     def _capture(self, b: SimpleNamespace, timings: Dict[str, float]) -> None:
         """Warm the round up on the side stream it is then captured on
         (autograd's and cuBLAS's first-call allocations stay out of the
-        graph), then capture one round that ends by copying its carry into
-        the carry buffers. A failed capture raises."""
+        graph), then capture it, ending by copying its carry into the
+        carry buffers. Unsharded, the round is one graph. Sharded, it is
+        two: `local` ending in the packed send buffers (``b.send``), and
+        `finish` starting from the receive buffers (``b.recv``, which the
+        collectives fill between the two replays). A failed capture
+        raises."""
         args = lambda: (b.carry, b.perms, b.X, b.Y, b.w, b.wr, b.scale)
 
-        def round_into_buffers():
-            carry, loss, _ = self.round_step(*args())
+        def finish_into_buffers(carry, recvs):
+            carry, loss, _ = self.finish(carry, recvs)
             tree_map(lambda dst, src: dst.copy_(src), b.carry, carry)
             return loss
 
-        # the warm-up's results are dropped: the carry buffers stay as they are
-        self._graph, b.loss = capture(
-            round_into_buffers, self.device,
-            warmup=lambda: self.round_step(*args()), timings=timings)
+        if self.comm is None:
+            # the warm-up's results are dropped: the carry buffers stay
+            self._graph, b.loss = capture(
+                lambda: finish_into_buffers(*self.local(*args())),
+                self.device, warmup=lambda: self.finish(*self.local(*args())),
+                timings=timings)
+            return
+
+        def warm_local():
+            _, sends = self.local(*args())
+            gathered = sends["all-gather"]
+            self._sends = {
+                "all-reduce": _layout(sends["all-reduce"]),
+                "all-gather": None if gathered is None else
+                (_layout(gathered), *_gather_rows(gathered))}
+
+        def local_into_buffers():
+            carry, sends = self.local(*args())
+            tree_map(lambda dst, src: dst.copy_(src), b.carry, carry)
+            return {k: None if v is None else _pack(v)
+                    for k, v in sends.items()}
+
+        def recvs():
+            gather = self._sends["all-gather"]
+            return {"all-reduce": _unpack(b.recv["all-reduce"],
+                                          self._sends["all-reduce"]),
+                    "all-gather": None if gather is None else _unpack(
+                        b.recv["all-gather"], gather[0],
+                        gather[1] * self.comm.shards)}
+
+        first: Dict[str, float] = {}
+        self._graph, b.send = capture(local_into_buffers, self.device,
+                                      warmup=warm_local, timings=first)
+        b.recv = {k: None if v is None else torch.zeros(
+            v.numel() * (self.comm.shards if k == "all-gather" else 1),
+            dtype=v.dtype, device=self.device) for k, v in b.send.items()}
+        self._graph2, b.loss = capture(
+            lambda: finish_into_buffers(b.carry, recvs()), self.device,
+            warmup=lambda: self.finish(b.carry, recvs()), timings=timings)
+        for k in ("warmup_s", "capture_s"):
+            timings[k] += first[k]
 
 
 # the reference's name for building a plan
@@ -1224,16 +1673,20 @@ make_fl_plan = FLPlan
 def _plan_args(padded: PaddedSilos, data, rounds: int, *, aggregator: str,
                schedule: Callable[[int], np.ndarray], device: torch.device,
                availability: Optional[np.ndarray] = None,
-               silo_scale: Optional[np.ndarray] = None) -> Tuple:
+               silo_scale: Optional[np.ndarray] = None,
+               rows: Optional[slice] = None) -> Tuple:
     """Device arguments a plan consumes for one tenant's padded stack:
     (X, Y, w, wr, scale, perms). availability (rounds, d) {0,1} folds into
-    the per-round weights wr (rounds, d); silo_scale (d,) defaults to
-    all-ones (honest); perms (rounds, d, E, n_slots) is the whole schedule,
-    uploaded once (None for fedsgd)."""
+    the per-round weights wr (rounds, d), normalized over every silo;
+    silo_scale (d,) defaults to all-ones (honest); perms (rounds, d, E,
+    n_slots) is the whole schedule, uploaded once (None for fedsgd). With
+    `rows` (a mesh shard's silos: `data` and `schedule` are already
+    theirs) wr and scale are those rows."""
     X, Y, w = data
-    wr = _round_weights(padded.sizes, availability, rounds)
+    rows = slice(None) if rows is None else rows
+    wr = _round_weights(padded.sizes, availability, rounds)[:, rows]
     scale = (np.ones(padded.num_silos, np.float32) if silo_scale is None
-             else np.asarray(silo_scale, np.float32))
+             else np.asarray(silo_scale, np.float32))[rows]
     perms = None if aggregator == "fedsgd" else torch.as_tensor(
         np.stack([schedule(r) for r in range(rounds)]), device=device)
     return (X, Y, w, torch.as_tensor(wr, device=device),
@@ -1256,7 +1709,8 @@ class LoweredPlan:
     and the per-round losses as one float64 vector; with an eval chunk
     (``eval_chunk=`` of ``run``, default the one lowered with) ``run``
     hands each chunk of rounds' params to an evaluation that appends them,
-    and ``eager`` appends each round's params alike."""
+    and ``eager`` appends each round's params alike. Both leave the plan
+    idle: what they filled is zeroed."""
 
     def __init__(self, plan: "FLPlan", args: Tuple, rounds: int,
                  eval_chunk: Optional[int]):
@@ -1286,12 +1740,16 @@ class LoweredPlan:
         chunk = self.eval_chunk if eval_chunk is None else eval_chunk
         next_round, final = self.plan._eager_rounds(init_params, fl_args)
         losses, seen = [], []
-        for rnd in range(self.rounds):
-            loss, gp = next_round(rnd)
-            losses.append(loss)
-            if chunk is not None:
-                seen.append(_flat(gp))
-        return np.concatenate([_flat(final()), _flat(losses), *seen])
+        try:
+            for rnd in range(self.rounds):
+                loss, gp = next_round(rnd)
+                losses.append(loss)
+                if chunk is not None:
+                    seen.append(_flat(gp))
+            return np.concatenate([_flat(final()), _flat(losses), *seen])
+        finally:
+            # a sharded plan's eager rounds went through its staging buffers
+            self.plan._release()
 
 
 def lower_fl_plan(plan: FLPlan, init_params: Any, padded: PaddedSilos, *,
@@ -1307,7 +1765,9 @@ def lower_fl_plan(plan: FLPlan, init_params: Any, padded: PaddedSilos, *,
     The counterpart of the reference's ``lower_fl_plan``; its
     ``StreamedPlan`` case has none, since the port chunks evaluation inside
     ``FLPlan.run``: `eval_chunk` (None: no evaluation) is the lowered
-    plan's ``run`` option instead."""
+    plan's ``run`` option instead. A sharded plan is lowered on every rank
+    of its mesh, over the global `padded` layout: each binds its shard's
+    rows, and ``collective_census`` reads the census of its last round."""
     if (padded.num_silos, padded.num_batches, padded.batch_size) != (
             plan.num_silos, plan.num_batches, plan.batch_size):
         raise ValueError(
@@ -1316,11 +1776,11 @@ def lower_fl_plan(plan: FLPlan, init_params: Any, padded: PaddedSilos, *,
             f"({plan.num_silos}, {plan.num_batches}, {plan.batch_size})")
     dev = plan.device
     sched = _schedule_fn(schedule, seed, padded.num_silos, plan.local_epochs,
-                         padded.n_slots, rounds)
-    fl_args = _plan_args(padded, _to_device(padded, dev), rounds,
+                         padded.n_slots, rounds, plan.rows)
+    fl_args = _plan_args(padded, _to_device(padded, dev, plan.rows), rounds,
                          aggregator=plan.aggregator, schedule=sched,
                          device=dev, availability=availability,
-                         silo_scale=silo_scale)
+                         silo_scale=silo_scale, rows=plan.rows)
     params = tree_map(lambda a: a.detach().to(dev), init_params)
     lowered = LoweredPlan(plan, (params,) + fl_args, rounds, eval_chunk)
     lowered.run(*lowered.args)
@@ -1332,10 +1792,14 @@ def make_scan_runner(batch_loss, padded: PaddedSilos, *, opt, rounds,
                      schedule: Optional[Schedule] = None, per_example=True,
                      reset_opt=True, availability=None, silo_scale=None,
                      trim_frac: float = 0.2, krum_f: int = 1,
-                     device: DeviceLike = None) -> Callable:
+                     device: DeviceLike = None, mesh=None,
+                     silo_axes: Optional[Sequence[str]] = None) -> Callable:
     """A ``run(init_params) -> (final_params, losses)`` with this tenant's
-    padded stack bound (losses: the (rounds,) list). Calling the SAME
-    runner twice reuses its plan, and on CUDA its captured graph."""
+    padded stack bound (losses: the (rounds,) list), its plan as
+    ``run.plan``. Calling the SAME runner twice reuses its plan, and on
+    CUDA its captured graph. With a
+    mesh, `padded` is the global layout (a multiple of the shard count)
+    and every rank of the mesh builds and calls its runner."""
     dev = resolve_device(device)
     dropout = availability is not None and not np.all(
         np.asarray(availability) > 0)
@@ -1345,17 +1809,19 @@ def make_scan_runner(batch_loss, padded: PaddedSilos, *, opt, rounds,
         local_epochs=local_epochs, aggregator=aggregator,
         per_example=per_example, reset_opt=reset_opt,
         masked=padded.has_padding or dropout, trim_frac=trim_frac,
-        krum_f=krum_f, device=dev)
+        krum_f=krum_f, device=dev, mesh=mesh, silo_axes=silo_axes)
     sched = _schedule_fn(schedule, seed, padded.num_silos, local_epochs,
-                         padded.n_slots, rounds)
-    args = _plan_args(padded, _to_device(padded, dev), rounds,
+                         padded.n_slots, rounds, plan.rows)
+    args = _plan_args(padded, _to_device(padded, dev, plan.rows), rounds,
                       aggregator=aggregator, schedule=sched, device=dev,
-                      availability=availability, silo_scale=silo_scale)
+                      availability=availability, silo_scale=silo_scale,
+                      rows=plan.rows)
 
     def run(init_params):
         res = plan.run(init_params, args, rounds=rounds)
         return res.params, [h["loss"] for h in res.history]
 
+    run.plan = plan
     return run
 
 
@@ -1364,11 +1830,13 @@ def _run_scan(batch_loss, init_params, padded: PaddedSilos, data, *, opt,
               per_example, reset_opt, device: torch.device,
               plan: Optional[FLPlan] = None, eval_chunk: int = 8,
               availability=None, silo_scale=None, trim_frac: float = 0.2,
-              krum_f: int = 1, masked: Optional[bool] = None) -> FLResult:
-    """Drive a plan over this tenant's padded stack: without eval_fn the
-    rounds run back to back and only the (rounds,) loss vector comes back
-    at the end; with eval_fn each chunk of eval_chunk rounds' params is
-    handed over once the chunk has run."""
+              krum_f: int = 1, masked: Optional[bool] = None, mesh=None,
+              silo_axes: Optional[Sequence[str]] = None) -> FLResult:
+    """Drive a plan over this tenant's padded stack (a mesh shard's rows
+    in `data` and `schedule`): without eval_fn the rounds run back to back
+    and only the (rounds,) loss vector comes back at the end; with eval_fn
+    each chunk of eval_chunk rounds' params is handed over once the chunk
+    has run."""
     if masked is None:
         masked = padded.has_padding or (
             availability is not None and not np.all(
@@ -1379,10 +1847,12 @@ def _run_scan(batch_loss, init_params, padded: PaddedSilos, data, *, opt,
             batch_size=padded.batch_size, opt=opt, batch_loss=batch_loss,
             local_epochs=local_epochs, aggregator=aggregator,
             per_example=per_example, reset_opt=reset_opt, masked=masked,
-            trim_frac=trim_frac, krum_f=krum_f, device=device)
+            trim_frac=trim_frac, krum_f=krum_f, device=device, mesh=mesh,
+            silo_axes=silo_axes)
     args = _plan_args(padded, data, rounds, aggregator=aggregator,
                       schedule=schedule, device=device,
-                      availability=availability, silo_scale=silo_scale)
+                      availability=availability, silo_scale=silo_scale,
+                      rows=plan.rows)
     return plan.run(init_params, args, rounds=rounds, eval_fn=eval_fn,
                     eval_chunk=max(int(eval_chunk), 1))
 

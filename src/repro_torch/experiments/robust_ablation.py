@@ -18,14 +18,13 @@ The script ASSERTS the acceptance criteria:
   * under label-flip, the best robust aggregator beats fedavg on honest
     data;
   * host == scan <= 1e-4 for every robust aggregator under dropout with a
-    scaled silo.
+    scaled silo;
+  * sharded == unsharded <= 1e-4 for the same runs, step 4 across
+    ``--ranks`` DC-server processes (``launch.mesh.run_ranks``; the
+    reference: 8 virtual devices), unless ``--skip-sharded``.
 
-The reference also holds sharded == unsharded; silo sharding is not
-ported (ROADMAP.md, Queue 1, multi-process silo sharding), so without
-``--skip-sharded`` the script raises before it runs anything.
-
-  python -m repro_torch.experiments.robust_ablation --skip-sharded [--fast]
-      [--device cpu] [--out-dir results_torch]
+  python -m repro_torch.experiments.robust_ablation [--fast] [--ranks 2]
+      [--skip-sharded] [--device cpu] [--out-dir results_torch]
 
 Writes ``BENCH_fed_robust.json`` under the output directory.
 """
@@ -46,16 +45,17 @@ from repro_torch.core.federated import (ROBUST_AGGREGATORS, Schedule,
                                         run_federated)
 from repro_torch.core.privacy import SiloAttack, apply_attack
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import DEFAULT_RANKS, run_ranks
 from repro_torch.models import mlp
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves
-from repro_torch.weights import mlp_params_from_numpy
+from repro_torch.weights import mlp_params_from_numpy, mlp_params_to_numpy
 
 AGGREGATORS = ("fedavg", "median", "trimmed_mean", "krum")
 TRIM_FRAC = 0.25          # d=6: trims floor(6·0.25)=1 silo per tail
 KRUM_F = 2                # tolerate up to 2 Byzantine silos
 GRID_SEED = 17            # the grid's minibatch and dropout draws
-ENGINE_SEED = 23          # the engine check's
+ENGINE_SEED = 23          # the engine and sharded checks'
 
 loss = partial(mlp.mlp_per_example_loss, task="regression")
 
@@ -172,11 +172,42 @@ def check_engine_agreement(sizes, rounds: int, epochs: int, *,
     return out
 
 
-def check_sharded_agreement(sizes, rounds: int, epochs: int):
-    raise NotImplementedError(
-        "the sharded == unsharded check needs silo sharding, which is not "
-        "ported to repro_torch yet (ROADMAP.md, Queue 1, multi-process "
-        "silo sharding); run with --skip-sharded")
+def check_sharded_agreement(sizes, rounds: int, epochs: int, *,
+                            ranks: int = DEFAULT_RANKS, init_params: Any = None,
+                            device: DeviceLike = None) -> Dict[str, float]:
+    """sharded == unsharded <= 1e-4 for every robust aggregator under
+    dropout with one scaled silo: the scan engine on `ranks` ranks of a
+    ``make_host_mesh(model=1)`` mesh (the silos padded to the shard
+    multiple) against the same engine in this process; every rank must
+    return the same params."""
+    dev = resolve_device(device)
+    silos = make_silos(sizes, seed=9)
+    params = _init(init_params, dev)
+    scale = [1.0] * len(sizes)
+    scale[1] = -5.0
+    kws = [dict(rounds=rounds, local_epochs=epochs, batch_size=16,
+                aggregator=agg, seed=ENGINE_SEED, dropout_rate=0.3,
+                silo_scale=scale, trim_frac=TRIM_FRAC, krum_f=KRUM_F)
+           for agg in ROBUST_AGGREGATORS]
+    spec = {"mesh": {"model": 1}, "silos": silos, "task": "regression",
+            "params": mlp_params_to_numpy(params),
+            "runs": [dict(kw, opt=("adamw", 1e-2)) for kw in kws]}
+    per_rank = run_ranks("repro_torch.launch.fed_ranks:fit", ranks,
+                         args=(spec,), device=dev)
+    out = {}
+    for i, kw in enumerate(kws):
+        base = run_federated(loss, params, silos, opt=adamw(1e-2),
+                             engine="scan", device=dev, **kw)
+        got = [tree_leaves(r["runs"][i]["params"]) for r in per_rank]
+        assert all(all(np.array_equal(a, b) for a, b in zip(got[0], g))
+                   for g in got), f"ranks disagree for {kw['aggregator']}"
+        diff = max(float(np.max(np.abs(a.detach().cpu().numpy() - b)))
+                   for a, b in zip(tree_leaves(base.params), got[0]))
+        assert diff <= 1e-4, (kw["aggregator"], diff)
+        out[kw["aggregator"]] = diff
+        print(f"[sharded] {kw['aggregator']:<13s} sharded==unsharded diff "
+              f"{diff:.2e} ({ranks} ranks)")
+    return out
 
 
 def _cell(rows, scenario, agg):
@@ -236,20 +267,21 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--fast", action="store_true", help="CI smoke grid")
     ap.add_argument("--out-dir", default=OUT_DIR)
     ap.add_argument("--skip-sharded", action="store_true",
-                    help="skip the sharded == unsharded check (required: "
-                         "silo sharding is not ported)")
+                    help="skip the sharded == unsharded check")
+    ap.add_argument("--ranks", type=int, default=DEFAULT_RANKS,
+                    help="DC-server processes of the sharded check")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
 
     sizes, rounds, epochs = layout(args.fast)
     engine_rounds = max(rounds // 2, 2)
-    if not args.skip_sharded:
-        check_sharded_agreement(sizes, engine_rounds, epochs)
     dev = resolve_device(args.device)
     rows = run_grid(sizes, rounds, epochs, device=dev)
     drop_rows = run_grid(sizes, rounds, epochs, dropout_rate=0.3, device=dev)
     engines = check_engine_agreement(sizes, engine_rounds, epochs,
                                      device=dev)
+    sharded = None if args.skip_sharded else check_sharded_agreement(
+        sizes, engine_rounds, epochs, ranks=args.ranks, device=dev)
     checks = acceptance(rows)
     out = {
         "bench": "fed_robust_ablation", "device": str(dev),
@@ -257,7 +289,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "trim_frac": TRIM_FRAC, "krum_f": KRUM_F,
         "grid": rows, "dropout_grid": drop_rows,
         "engine_agreement_maxdiff": engines,
-        "sharded_agreement_maxdiff": None,
+        "sharded_agreement_maxdiff": sharded,
         "acceptance": checks,
     }
     os.makedirs(args.out_dir, exist_ok=True)

@@ -59,12 +59,22 @@ def report():
 # the audit on the CPU
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("flavor", [f[0] for f in audit.FLAVORS])
+@pytest.mark.parametrize("flavor", [f[0] for f in audit.FLAVORS]
+                         + [f[0] for f in audit.SHARDED_FLAVORS])
 def test_every_flavor_passes_the_audit(report, flavor):
+    """Every flavor, the sharded ones on 2 CPU ranks, with its census: none
+    unsharded; {all-reduce: leaves+1} for a sharded weighted plan and
+    {all-reduce: 1, all-gather: leaves+1} for a sharded robust one (one
+    level: a 2 x 1 ("data", "model") mesh)."""
     row = next(r for r in report["flavors"] if r["flavor"] == flavor)
     assert row["baked"] == [] and row["plans"] == 1
     assert row["captures"] == 0              # nothing is captured on the CPU
     assert row["max_rel_err_vs_eager"] == 0.0
+    leaves = 4                               # the 16 -> 8 -> 1 MLP
+    assert row["collectives"] == row["expected_collectives"] == (
+        {} if not flavor.startswith("sharded/") else
+        {"all-reduce": 1, "all-gather": leaves + 1}
+        if "trimmed_mean" in flavor else {"all-reduce": leaves + 1})
 
 
 @pytest.mark.parametrize("aggregator,dropout",
@@ -120,17 +130,18 @@ def test_warm_run_builds_nothing(report):
 
 
 def test_cli_prints_each_check_and_exit_status(report, monkeypatch, capsys):
-    monkeypatch.setattr(audit, "run", lambda device, min_elems: report)
+    monkeypatch.setattr(audit, "run", lambda device, min_elems, ranks: report)
     assert audit.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert sum(l.startswith("AUDIT_OK ") for l in out) == len(audit.FLAVORS)
+    assert sum(l.startswith("AUDIT_OK ") for l in out) == len(audit.FLAVORS) \
+        + len(audit.SHARDED_FLAVORS)
+    assert sum(l.startswith("AUDIT_OK sharded/") for l in out) == 3
     assert sum(l.startswith("POSITIVE_CONTROL caught ") for l in out) == 2
     assert "WARM_RECOMPILES 0" in out
-    skipped = [l for l in out if l.startswith("SKIPPED ")]
-    assert len(skipped) == 1 and "Queue 1, multi-process silo" in skipped[0]
+    assert not any(l.startswith("SKIPPED ") for l in out)
     missed = dict(report, buffer_control={"structure": []})
     missed["ok"] = audit.ok(missed)
-    monkeypatch.setattr(audit, "run", lambda device, min_elems: missed)
+    monkeypatch.setattr(audit, "run", lambda device, min_elems, ranks: missed)
     assert audit.main(["--device", "cpu"]) == 1
     assert "POSITIVE_CONTROL MISSED buffer_resident" in capsys.readouterr().out
 
@@ -267,7 +278,9 @@ def test_audit_on_cuda(cuda_device):
     rep = audit.run(cuda_device)
     assert rep["ok"] is True
     for row in rep["flavors"]:
-        assert (row["plans"], row["captures"]) == (1, 1), row
+        # a sharded round is two graphs, one each side of the collective
+        two = row["flavor"].startswith("sharded/")
+        assert (row["plans"], row["captures"]) == (1, 1 + two), row
         assert row["max_rel_err_vs_eager"] <= 1e-5, row
 
 

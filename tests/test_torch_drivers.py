@@ -39,7 +39,7 @@ from repro.models import mlp as jmlp  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.serve_collab import ServeCollab as JServeCollab  # noqa: E402
 from repro_torch.analysis import (BakedDataError, CompileCounter,  # noqa: E402
-                                  assert_no_baked_data, collective_census)
+                                  assert_no_baked_data)
 from repro_torch.benchmarks import fed_bench, serve_bench  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.federated import PlanCache, run_federated  # noqa: E402
@@ -59,8 +59,6 @@ SERVE_TOL = 2e-5
 ONBOARD_TOL = 1e-5
 LOSS_TOL = 1e-4
 PARAM_TOL = 1e-5
-# what the sharded legs' errors name: the ROADMAP item, by name
-SHARDING_QUEUE = "Queue 1, multi-process silo sharding"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -349,17 +347,39 @@ def test_robust_ablation_cli_accepts_and_writes_only_its_out_dir(
 
 
 def test_sharded_legs_raise_before_any_work(tmp_path, monkeypatch):
+    """The drivers' sharded legs (named when they raised: they waited for
+    silo sharding) run on CPU ranks with the reference's asserts:
+    ``check_sharded_agreement`` holds every robust aggregator, under
+    dropout with a scaled silo, sharded == unsharded <= 1e-4 on 2 ranks;
+    ``fed_bench --sharded --fast`` writes its rows at 1 and 2 ranks, each
+    within 1e-5 and with the reference's census; ``--sharded-worker``
+    writes one row. Nothing but --out-dir is written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
-        robust_ablation.main(["--fast", "--device", "cpu", "--out-dir", "o"])
-    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
-        robust_ablation.check_sharded_agreement((4, 4), 2, 1)
-    for flag in ("--sharded", "--sharded-worker"):
-        with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
-            fed_bench.main([flag, "--device", "cpu", "--out-dir", "o"])
-    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
-        collective_census("")
-    assert list(tmp_path.iterdir()) == []
+    sizes, rounds, epochs = robust_ablation.layout(fast=True)
+    diffs = robust_ablation.check_sharded_agreement(
+        sizes, max(rounds // 2, 2), epochs, ranks=2, device="cpu")
+    assert set(diffs) == {"median", "trimmed_mean", "krum"}
+    for agg, diff in diffs.items():
+        _gap(f"robust_ablation sharded == unsharded {agg}", diff, 1e-4)
+    out = fed_bench.main(["--sharded", "--fast", "--ranks", "2",
+                          "--device", "cpu", "--out-dir", "o"])
+    rows = out["cases"]
+    assert [(r["ranks"], r["aggregator"]) for r in rows] == [
+        (1, "fedavg"), (1, "median"), (2, "fedavg"), (2, "median")]
+    leaves = rows[0]["param_leaves"]
+    assert [r["collectives"] for r in rows] == [
+        {}, {}, {"all-reduce": leaves + 1},
+        {"all-reduce": 1, "all-gather": leaves + 1}]
+    for r in rows:
+        _gap(f"fed_bench sharded {r['ranks']} ranks {r['aggregator']}",
+             r["rel_param_diff"], 1e-5)
+    row = fed_bench.main(["--sharded-worker", "--ranks", "2", "--d", "3",
+                          "--rounds", "2", "--aggregator", "krum",
+                          "--device", "cpu", "--out-dir", "o"])
+    assert row["collectives"] == {"all-reduce": 1, "all-gather": leaves + 1}
+    assert sorted(p.name for p in (tmp_path / "o").iterdir()) == [
+        "BENCH_fed_sharded.json", "BENCH_fed_sharded_row.json"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["o"]
 
 
 # --------------------------------------------------------------------------

@@ -232,10 +232,10 @@ def test_port_schedule_and_unported_options():
     with pytest.raises(ValueError, match="schedule must be"):
         tfed.run_federated(loss, p, silos, schedule=np.zeros((1, 2, 2, 24)),
                            **kw)
-    # only mesh sharding is left unported; the scan engine, the plan
-    # cache, the robust aggregators, dropout and silo scaling run
-    # (tests/test_torch_fed_scan.py, test_torch_fed_robust.py and
-    # test_torch_plan_cache.py hold them to the reference)
-    for bad in (dict(mesh=object()), dict(mesh=object(), engine="scan")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfed.run_federated(loss, p, silos, **kw, **bad)
+    # mesh= (tests/test_torch_sharded.py runs it on ranks) needs the scan
+    # engine, as the reference's does, and a mesh of ranks
+    with pytest.raises(ValueError, match="scan"):
+        tfed.run_federated(loss, p, silos, mesh=object(), **kw)
+    with pytest.raises(TypeError, match="HostMesh"):
+        tfed.run_federated(loss, p, silos, mesh=object(), engine="scan",
+                           **kw)

@@ -65,7 +65,7 @@ ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
 ROUTER_TOL = 1e-6
 # what the expert-parallel error names: the ROADMAP item, by name
-SHARDING_QUEUE = "Queue 1, multi-process silo sharding"
+LAUNCH_MESH_QUEUE = "Queue 1 item 4, the launch tier's mesh"
 GRANITE, DEEPSEEK = "granite-moe-1b-a400m", "deepseek-v3-671b"
 B, S = 2, 24
 F32J = dict(compute_dtype=jnp.float32)
@@ -296,7 +296,7 @@ def test_moe_ep_takes_gspmd_alone_and_raises_in_a_group(monkeypatch):
     assert torch.equal(o_ep, o_gs) and torch.equal(a_ep, a_gs)
     monkeypatch.setattr(tmoe_ep.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(tmoe_ep.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match=SHARDING_QUEUE):
+    with pytest.raises(NotImplementedError, match=LAUNCH_MESH_QUEUE):
         tlayers.apply_moe(pt, x, ep)
 
 
