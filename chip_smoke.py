@@ -114,7 +114,19 @@ these paths through the port's public entry points:
   deepseek-v3 at full width cut to 2 layers and 32 of 256 experts (MLA:
   a bf16 prefill into the latent cache, decode on it eager and captured,
   the absorbed decode held to the expanded forward in fp32, 3 train
-  steps with MTP and bf16 moments).
+  steps with MTP and bf16 moments);
+- the launch tier's dry-run (``repro_torch.launch.dryrun``): the
+  llama3.2-1b bf16 prefill (4 x 2048, plain path) and a granite-moe-1b
+  train step (4 x 2048) traced on fake CUDA tensors, then run for real
+  from a reset peak: the fake and real flop counts equal, the trace's
+  peak within 0.8-1.25 of the allocator's; the dry-run's CLI for a
+  traced and a spec-level pair;
+- the expert-parallel MoE exchange (``repro_torch.models.moe_ep``): one
+  granite-moe-1b MoE layer at full width (E 32, top-8, d 1024) on 2
+  ranks sharing the card, one all_to_all each way over gloo through
+  pinned host memory, forward and backward of 2 x 2048 tokens in fp32,
+  held to the plain one-process emulation of the exchange within 1e-5,
+  with its bytes and ms a layer.
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step, the federated rounds) give min / median / max
@@ -181,7 +193,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
-from repro_torch.launch import fed_ranks  # noqa: E402
+from repro_torch.launch import dryrun, fed_ranks  # noqa: E402
+from repro_torch.launch import roofline, roofline_table  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
@@ -195,7 +208,7 @@ from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
 from repro_torch.launch.train import step_prefix, train  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.models import mlp  # noqa: E402
+from repro_torch.models import mlp, moe_ep  # noqa: E402
 from repro_torch.models.modality import synthetic_prefix  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve_collab.server import (  # noqa: E402
@@ -333,6 +346,19 @@ DEEPSEEK_TRAIN_B, DEEPSEEK_TRAIN_S, DEEPSEEK_TRAIN_STEPS = 1, 1024, 3
 # below this (fp32 paths; relative gaps of ~1e-6 move the probabilities
 # by far less)
 FLIP_MARGIN = 1e-5
+# the dry-run's one-card counters held to two runs the card makes: the
+# llama3.2-1b bf16 prefill of PREFILL_B x PREFILL_S on the plain path and a
+# granite-moe-1b train step of GRANITE_B x GRANITE_S (TrainConfig's
+# defaults, plain attention); the fake trace's peak over the allocator's
+# measured one must lie in DRYRUN_PEAK
+DRYRUN_PEAK = (0.8, 1.25)
+# the expert-parallel exchange: one granite-moe-1b MoE layer at full width
+# (E 32, top-8, d 1024) on EP_RANKS ranks sharing the card, a (1, EP_RANKS)
+# mesh, EP_B x EP_S tokens, fp32, forward and backward, held to the plain
+# one-process emulation of the exchange
+EP_RANKS, EP_B, EP_S, EP_AUX = 2, 2, 2048, 0.01
+EP_TOL = 1e-5            # over max(1, |emulation|), each output and gradient
+EP_REPEATS = 3           # warm forward + backward passes before the timed one
 # steps of the new decode rows' profiled runs and captured-vs-eager gap: the
 # profiler's post-processing grows with the kernels it saw (rwkv6-3b runs
 # ~2,800 a step)
@@ -3576,6 +3602,206 @@ def phase_deepseek_mla(dev):
     return row
 
 
+def dryrun_check(name, step, meta_args, real_args, dev):
+    """`step` traced on fake tensors of `dev` from `meta_args` (the
+    dry-run's counters), then run for real on `real_args` under the same
+    counters from a reset peak: the fake vs real flops (equal), the
+    trace's peak against the allocator's (the step's own allocations
+    plus its arguments)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        _, est = dryrun.trace_step(step, dryrun.fake_args(meta_args, dev))
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    t0 = time.perf_counter()
+    out, real = dryrun.trace_step(step, real_args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    args_b = est["memory"]["argument_bytes"]
+    measured = torch.cuda.max_memory_allocated() - base + args_b
+    # the sizes the step asked for, before the allocator's blocks round them
+    requested = torch.cuda.memory_stats()["requested_bytes.all.peak"] \
+        - base_req + args_b
+    del out
+    row = {"step": name, "trace_s": trace_s, "run_s": run_s,
+           "flops_fake": est["flops"], "flops_real": real["flops"],
+           "bytes_accessed_fake": est["bytes_accessed"],
+           "bytes_accessed_real": real["bytes_accessed"],
+           "estimated_peak_bytes": est["peak_bytes"],
+           "counted_peak_bytes_real": real["peak_bytes"],
+           "measured_peak_bytes": measured,
+           "requested_peak_bytes": requested,
+           "peak_ratio": est["peak_bytes"] / measured,
+           "requested_ratio": est["peak_bytes"] / requested,
+           "temp_ratio": (est["peak_bytes"]
+                          - est["memory"]["argument_bytes"])
+           / (measured - est["memory"]["argument_bytes"]),
+           "memory": est["memory"]}
+    check(row["flops_fake"] == row["flops_real"] > 0,
+          f"dryrun {name}: fake flops {row['flops_fake']} != real "
+          f"{row['flops_real']}")
+    lo, hi = DRYRUN_PEAK
+    check(lo <= row["peak_ratio"] <= hi,
+          f"dryrun {name}: estimated / measured peak {row['peak_ratio']} "
+          f"outside {DRYRUN_PEAK}")
+    return row
+
+
+def phase_dryrun(dev):
+    """The dry-run's one-card counters (``launch.dryrun``) on two runs the
+    card makes: llama3.2-1b's bf16 prefill of PREFILL_B x PREFILL_S on the
+    plain path, and a granite-moe-1b train step of GRANITE_B x GRANITE_S
+    (TrainConfig's defaults, plain attention), random weights from a seed;
+    then ``python -m repro_torch.launch.dryrun`` on the card for two
+    pairs. Fails when the flops differ or a peak ratio leaves
+    DRYRUN_PEAK."""
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(total == roofline.HW["hbm_bytes"],
+          f"total_memory {total} != roofline.HW {roofline.HW['hbm_bytes']}")
+    meta = torch.device("meta")
+    rows = []
+    step = make_prefill_step(LLAMA, cache_len=PREFILL_CACHE,
+                             compute_dtype=torch.bfloat16,
+                             use_kernels=False, device=dev)
+    p16 = bb.init_params(LLAMA, torch.Generator(device=dev).manual_seed(3),
+                         torch.bfloat16, device=dev)
+    tokens = random_tokens(4, (PREFILL_B, PREFILL_S), LLAMA.vocab_size, dev)
+    meta_args = (bb.init_params(LLAMA, None, torch.bfloat16, device=meta),
+                 {"tokens": torch.empty((PREFILL_B, PREFILL_S),
+                                        dtype=tokens.dtype, device=meta)})
+    rows.append(dryrun_check("llama3.2-1b bf16 prefill plain", step,
+                             meta_args, (p16, {"tokens": tokens}), dev))
+    del p16
+    torch.cuda.empty_cache()
+    tc = TrainConfig(model=GRANITE, shape=InputShape(
+        "chip", GRANITE_S, GRANITE_B, "train"))
+    step, opt = make_train_step(GRANITE, tc, use_kernels=False, device=dev)
+    p32 = bb.init_params(GRANITE, torch.Generator(device=dev).manual_seed(7),
+                         torch.float32, device=dev)
+    batch = TokenStream(GRANITE.vocab_size, GRANITE_S, GRANITE_B,
+                        seed=0).batch(0)
+    batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in batch.items()}
+    pm = bb.init_params(GRANITE, None, torch.float32, device=meta)
+    meta_args = (pm, opt.init(pm), {k: torch.empty(v.shape, dtype=v.dtype,
+                                                   device=meta)
+                                    for k, v in batch.items()})
+    rows.append(dryrun_check("granite-moe-1b train step", step, meta_args,
+                             (p32, opt.init(p32), batch), dev))
+    del p32
+    torch.cuda.empty_cache()
+    # the CLI on the card: fake cuda tensors, one traced and one spec-level
+    # pair, its records read back from a temporary directory
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rc = dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                          "--out", out])
+        rc |= dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                           "--multi-pod", "--out", out])
+        recs = roofline_table.load(out)
+    cli_s = time.perf_counter() - t0
+    rec = recs[("llama3.2-1b", "decode_32k", "1x1", "baseline")]
+    row = {"phase": "dryrun", "checks": rows, "total_memory": total,
+           "cli_s": cli_s, "cli_decode_32k": {
+               k: rec[k] for k in ("flops_per_device", "bytes_per_device",
+                                   "peak_bytes", "fits_one_card",
+                                   "dominant", "roofline_bound_s")},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check(rc == 0, f"dryrun CLI exit {rc}")
+    return row
+
+
+def ep_case(dev):
+    """Layer 0's MoE params of granite-moe-1b at full width (random from a
+    seed, fp32, NumPy), the block x and the cotangent."""
+    cfg = GRANITE.with_overrides(moe=replace(GRANITE.moe, impl="ep"))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p = model_layers.init_moe(gen, cfg, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=g, device=dev)
+    cot = torch.randn((EP_B, EP_S, cfg.d_model), generator=g, device=dev)
+    return cfg, p, x, cot
+
+
+def phase_moe_ep(dev, smi):
+    """The expert-parallel exchange (``models.moe_ep``) on EP_RANKS ranks
+    sharing the card: one granite-moe-1b MoE layer at full width, a
+    (1, EP_RANKS) mesh, forward and backward of sum(out · cot) + EP_AUX ·
+    aux (each rank's share: its own S/M slice), in fp32; held to the plain
+    one-process emulation of the exchange (the M shards' buffers
+    concatenated, ``moe_ep.emulate_ep``) and its autograd, within EP_TOL;
+    the exchange's bytes and ms a layer."""
+    t_phase = time.perf_counter()
+    cfg, p, x, cot = ep_case(dev)
+    leaves = tree_leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    out, aux = moe_ep.emulate_ep(p, xg, cfg, EP_RANKS)
+    loss = torch.sum(out * cot) + EP_AUX * aux
+    grads = torch.autograd.grad(loss, leaves + [xg], allow_unused=True)
+    want = {"out": out.detach().cpu().numpy(), "aux": float(aux.detach())}
+    names = [k for k in p] + ["x"]
+    want_g = {k: (np.zeros(tuple(t.shape), np.float32) if g is None
+                  else g.cpu().numpy())
+              for k, t, g in zip(names, leaves + [xg], grads)}
+    spec = {"meshes": [(1, EP_RANKS)], "device": dev.type,
+            "repeats": EP_REPEATS,
+            "cases": [{"name": "granite", "cfg": cfg,
+                       "params": mlp_params_to_numpy(p),
+                       "x": x.cpu().numpy(), "cot": cot.cpu().numpy(),
+                       "aux_coef": EP_AUX}]}
+    del out, aux, grads, loss, xg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = run_ranks(fed_ranks.moe_ep_layer, EP_RANKS, args=(spec,),
+                    device=dev.type, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    res = [g[((1, EP_RANKS), "granite")] for g in got]
+    scale = lambda a: max(1.0, float(np.abs(a).max()))  # noqa: E731
+    out_gap = max(float(np.abs(r["out"] - want["out"]).max())
+                  for r in res) / scale(want["out"])
+    aux_gap = max(abs(r["aux"] - want["aux"]) for r in res) \
+        / scale(np.asarray(want["aux"]))
+    grad_gaps = {}
+    for k in names:
+        summed = sum(r["grads"][k] for r in res)
+        grad_gaps[k] = float(np.abs(summed - want_g[k]).max()) \
+            / scale(want_g[k])
+    mo = cfg.moe
+    T_loc = EP_B * EP_S // EP_RANKS
+    cap = max(int(mo.capacity_factor * T_loc * mo.top_k / mo.num_experts), 1)
+    buf_bytes = mo.num_experts * cap * cfg.d_model * 4
+    row = {"phase": "moe_ep", "arch": cfg.name, "ranks": EP_RANKS,
+           "mesh": [1, EP_RANKS], "tokens": [EP_B, EP_S],
+           "experts": mo.num_experts, "top_k": mo.top_k,
+           "d_model": cfg.d_model, "T_loc": T_loc, "cap": cap,
+           "buffer_bytes_each_way": buf_bytes,
+           "crossing_bytes_each_way": buf_bytes * (EP_RANKS - 1) // EP_RANKS,
+           "out_gap": out_gap, "aux_gap": aux_gap, "grad_gaps": grad_gaps,
+           "exchange_by_rank": [r["stats"] for r in res],
+           "layer_ms_by_rank": [1e3 * r["seconds"] for r in res],
+           "collective_ms_by_rank": [1e3 * r["stats"]["seconds"]
+                                     for r in res],
+           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
+           "device": smi}
+    emit(row)
+    check(out_gap <= EP_TOL and aux_gap <= EP_TOL,
+          f"moe_ep out {out_gap} / aux {aux_gap} vs the emulation")
+    check(max(grad_gaps.values()) <= EP_TOL,
+          f"moe_ep summed gradients vs the emulation's: {grad_gaps}")
+    check(all(r["stats"]["calls"]["all-to-all"] == 4 for r in res),
+          f"moe_ep exchanges: {[r['stats'] for r in res]}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3615,6 +3841,10 @@ def main() -> int:
     gemma_row = phase_gemma2_prefill(dev)
     torch.cuda.empty_cache()
     granite_row = phase_granite_moe(dev)
+    torch.cuda.empty_cache()
+    phase_dryrun(dev)
+    torch.cuda.empty_cache()
+    phase_moe_ep(dev, smi)
     torch.cuda.empty_cache()
     zamba_row = phase_zamba2_hybrid(dev)
     torch.cuda.empty_cache()

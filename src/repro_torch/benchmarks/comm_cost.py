@@ -1,18 +1,15 @@
 """Communication-cost accounting (the paper's §3.2 claim and the systems
 point of the whole method): per-user cross-institution round trips and
-bytes, FedDCL vs FedAvg.
-
-The reference's ``mesh_amortization`` (per-step cross-silo collective
-bytes read from its TPU dry-run JSONs) is not here: it waits for the
-port's dry-run tooling (ROADMAP.md Queue 1, the dry-run item), and a TPU
-dry-run's bytes are not the port's. ``run`` reports an empty mesh table
-in its place.
+bytes, FedDCL vs FedAvg, plus the mesh-level per-step collective
+amortization (cross-silo bytes / H) read from the port's dry-run records
+(``launch.dryrun``) when there are any.
 
   python -m repro_torch.benchmarks.comm_cost [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 
@@ -67,6 +64,36 @@ def protocol_comm(dataset: str = "mnist", d: int = 5, c: int = 4,
     }
 
 
+def mesh_amortization(result_dir: str = "results_torch/dryrun", H: int = 4):
+    """Per-step collective bytes: baseline vs feddcl local + sync / H, from
+    the dry-run's train_4k records. Only a record of a mesh of more than
+    one rank with a measured ``collective_bytes_per_device`` counts: the
+    one-card mesh moves nothing between ranks, and a production mesh's
+    record is specs only (null costs) until a sharded LLM program runs
+    across cards, so today this returns []."""
+    out = {}
+    for f in glob.glob(os.path.join(result_dir, "*__train_4k__*__*.json")):
+        with open(f) as fh:
+            rec = json.load(fh)
+        if rec["chips"] > 1 and rec["collective_bytes_per_device"] is not None:
+            out[(rec["arch"], rec["mesh"], rec["mode"])] = \
+                rec["collective_bytes_per_device"]
+    rows = {}
+    for (arch, mesh, mode), v in sorted(out.items()):
+        rows.setdefault((arch, mesh), {})[mode] = v
+    table = []
+    for (arch, mesh), modes in rows.items():
+        if "feddcl" in modes and "feddcl_sync" in modes and "baseline" in modes:
+            amort = modes["feddcl"] + modes["feddcl_sync"] / H
+            table.append({
+                "arch": arch, "mesh": mesh,
+                "baseline_coll_bytes_per_step": modes["baseline"],
+                "feddcl_amortized_coll_bytes_per_step": amort,
+                "reduction_x": modes["baseline"] / max(amort, 1.0),
+            })
+    return table
+
+
 def user_traffic_reduction(rows) -> float:
     return rows["fedavg_user_bytes_total"] / max(
         rows["feddcl_user_bytes_total"], 1)
@@ -82,7 +109,14 @@ def run(fast: bool = False, device: DeviceLike = None,
           f"{user_traffic_reduction(rows):.1f}x, "
           f"msgs {rows['fedavg_msgs_per_user']} -> "
           f"{rows['feddcl_msgs_per_user']}")
-    table = []          # the mesh table waits for the dry-run tooling
+    table = mesh_amortization()
+    if table:
+        print("\nMesh-level per-step cross-silo bytes (dry-run):")
+        for r in table:
+            print(f"  {r['arch']:24s} baseline="
+                  f"{r['baseline_coll_bytes_per_step']:.3e} "
+                  f"feddcl(H=4)={r['feddcl_amortized_coll_bytes_per_step']:.3e}"
+                  f" ({r['reduction_x']:.2f}x)")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "comm_cost.json"), "w") as f:
         json.dump({"protocol": rows, "mesh": table}, f, indent=1)

@@ -76,6 +76,7 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import capture, zero_buffers
 from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.shardingx.policy import batch_spec, shard_shape
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -567,9 +568,15 @@ class SiloComm:
     ``census`` is the current round's record, {kind: operands}: one per
     leaf of the combined tree per level, the count a census of the
     reference's compiled round gives (it counts operands, since a combined
-    collective is one op with many)."""
+    collective is one op with many). ``records`` lists the round's
+    collectives, one per level: {"kind", "bytes" (this rank's result
+    buffer), "groups" (every rank group of the level's axis)}, what
+    ``launch.roofline`` reads where the reference parses HLO."""
 
     def __init__(self, mesh, axes: Sequence[str], device: torch.device):
+        from repro_torch.launch.mesh import refuse_planning
+
+        refuse_planning(mesh, "a sharded plan's round boundary")
         if not mesh.contains():
             raise ValueError(f"{mesh!r}: this rank holds no shard")
         sizes = _mesh_axis_sizes(mesh)
@@ -580,6 +587,7 @@ class SiloComm:
                        if sizes[a] > 1]
         self._staging: Dict[Tuple, torch.Tensor] = {}
         self.census: Dict[str, int] = {}
+        self.records: List[Dict[str, Any]] = []
         self.reset()
 
     def rebind(self, mesh) -> None:
@@ -630,7 +638,12 @@ class SiloComm:
 
     def begin_round(self) -> None:
         self.census = {}
+        self.records = []
         self.rounds += 1
+
+    def _record(self, kind: str, axis: str, nbytes: int) -> None:
+        self.records.append({"kind": kind, "bytes": nbytes,
+                             "groups": self.mesh.axis_groups(axis)})
 
     def _start(self, flat: torch.Tensor) -> float:
         """The clock at a collective's start, once the device has produced
@@ -647,6 +660,7 @@ class SiloComm:
         for ax, _ in self.levels:
             dist.all_reduce(host, group=self.mesh.group(ax))
             self.wire_bytes += host.numel() * 4
+            self._record("all-reduce", ax, host.numel() * 4)
         self._count("all-reduce", operands)
         out = self._land(host, out)
         self.seconds += time.perf_counter() - t0
@@ -666,6 +680,7 @@ class SiloComm:
             got = self._buf(("all-gather-recv", lvl), k * n).view(k, n)
             dist.all_gather(list(got), host, group=self.mesh.group(ax))
             self.wire_bytes += n * 4
+            self._record("all-gather", ax, k * n * 4)
             nxt = self._buf(("all-gather", lvl + 1), k * n)
             src = dst = 0
             for size in row_sizes:
@@ -684,7 +699,8 @@ class SiloComm:
 
     def stats(self) -> Dict[str, Any]:
         n = max(self.rounds, 1)
-        return {"census": dict(self.census), "axes": list(self.axes),
+        return {"census": dict(self.census), "records": list(self.records),
+                "axes": list(self.axes),
                 "levels": [a for a, _ in self.levels], "shards": self.shards,
                 "shard": self.shard, "rounds": self.rounds,
                 "collective_s": self.seconds,
@@ -1423,7 +1439,10 @@ class FLPlan:
                     "(pad_silo_data min_silos, as run_federated does) so "
                     "every shard holds num_silos/shards silos")
             self.comm = SiloComm(mesh, axes, self.device)
-            self.local_silos = num_silos // shards
+            # the silo dim spans the silo axes jointly (the tuple form)
+            self.local_silos = shard_shape(
+                (num_silos,), batch_spec(mesh, federated=True,
+                                         silo_axis=axes, ndim=1), mesh)[0]
             lo = self.comm.shard * self.local_silos
             self.rows = slice(lo, lo + self.local_silos)
         self.replays = 0

@@ -1,6 +1,7 @@
 """Rank targets for step 4 across DC-server processes: what each rank of
 ``launch.mesh.run_ranks`` runs when the tests, the drivers and
-``chip_smoke.py`` shard FedDCL's federated phase.
+``chip_smoke.py`` shard FedDCL's federated phase (and, in `moe_ep_layer`,
+the expert-parallel MoE layer over the model ranks).
 
 Every target takes one picklable `spec` dict, runs on every rank of the
 group (SPMD: the same spec everywhere) and returns NumPy results, so the
@@ -32,7 +33,7 @@ from repro_torch.launch.mesh import (make_host_mesh, make_mesh, rank_device,
                                      silo_axis_name, num_silos)
 from repro_torch.models import mlp
 from repro_torch.optim import adamw, sgd
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
 
@@ -194,6 +195,81 @@ def describe_mesh(spec: Dict) -> Dict[str, Any]:
         except ValueError as e:
             facts["host_meshes"].append(str(e))
     return facts
+
+
+def moe_ep_layer(spec: Dict) -> Dict[str, Any]:
+    """The expert-parallel MoE layer (``models.moe_ep.apply_moe_ep``) on
+    every ("data", "model") mesh of ``spec["meshes"]`` (each built over the
+    first ranks of the group, on every rank), for every case of
+    ``spec["cases"]``: {"name", "cfg" (a ModelConfig with a moe), "params"
+    (the layer's moe params, NumPy), "x" and "cot" (B, S, d), "aux_coef"}.
+
+    A rank of the mesh takes its batch block of x, runs the layer under
+    ``use_mesh`` and takes gradients of its share of the loss sum(out ·
+    cot) + aux_coef · aux: the out·cot terms of its own S/M slice of the
+    block (the tokens it routes) plus aux_coef · aux. Returns {(mesh,
+    name): {"coords", "out" (its block), "aux", "grads" (params and "x",
+    its block), "stats" (the exchange's, for one forward and backward)}}
+    for the meshes that hold it; with ``spec["repeats"]`` the forward and
+    backward run that many more times first, and "seconds" times the
+    last one."""
+    import time
+
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import moe_ep
+
+    dev = _device(spec)
+    out: Dict[Any, Any] = {}
+    for shape in spec["meshes"]:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        if not mesh.contains():
+            continue
+        D, M = shape
+        dd, m = mesh.coordinate("data"), mesh.coordinate("model")
+        for case in spec["cases"]:
+            cfg = case["cfg"]
+            p = params_from_numpy(case["params"], dev)
+            leaves = tree_leaves(p)
+            x_all = torch.as_tensor(case["x"], device=dev)
+            B, S, _ = x_all.shape
+            rows = slice(dd * B // D, (dd + 1) * B // D)
+            cols = slice(m * S // M, (m + 1) * S // M)
+            cot = torch.as_tensor(case["cot"], device=dev)[rows, cols]
+
+            def once():
+                for t in leaves:
+                    t.requires_grad_(True)
+                x = x_all[rows].clone().requires_grad_(True)
+                with use_mesh(mesh):
+                    o, aux = moe_ep.apply_moe_ep(p, x, cfg)
+                loss = torch.sum(o[:, cols] * cot) + case["aux_coef"] * aux
+                gs = torch.autograd.grad(loss, leaves + [x],
+                                         allow_unused=True)
+                return o, aux, gs
+
+            for _ in range(spec.get("repeats", 0)):
+                once()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            moe_ep.STATS.reset()
+            t0 = time.perf_counter()
+            o, aux, gs = once()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            it = iter(gs[:-1])
+            grads = params_to_numpy(tree_map(
+                lambda t: _grad_or_zeros(next(it), t), p))
+            grads["x"] = gs[-1].detach().cpu().numpy()
+            out[(tuple(shape), case["name"])] = {
+                "coords": (dd, m), "out": o.detach().cpu().numpy(),
+                "aux": float(aux.detach()), "grads": grads,
+                "stats": moe_ep.STATS.as_dict(), "seconds": seconds}
+    return out
+
+
+def _grad_or_zeros(g, t: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(t) if g is None else g.detach()
 
 
 def serial(jobs: Sequence[Tuple]) -> List[Any]:

@@ -22,9 +22,19 @@ what `fn` returned on each. It is how the tests, the drivers and
 ``chip_smoke.py`` shard step 4, and it never hangs: when a rank raises or
 dies, every other rank is ended and the caller gets that rank's
 traceback; past `timeout` every rank is ended too.
+
+``use_mesh(mesh)`` is the counterpart of the reference's ``with mesh:``:
+inside it ``current_mesh()`` is the mesh (what ``moe_ep`` and
+``shardingx.constrain`` read). ``one_card_mesh()`` is the ("data",
+"model") = (1, 1) mesh the port's LLM programs run on, and
+``planning_mesh(multi_pod)`` a production mesh in one process (a
+fake-backend group of 256 / 512 ranks) for the dry-run's specs: the
+counterpart of the reference's 512 placeholder devices, which compute
+nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import importlib
 import math
@@ -37,7 +47,8 @@ import tempfile
 import threading
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -72,6 +83,8 @@ class HostMesh:
         self.devices = np.arange(math.prod(shape)).reshape(tuple(shape))
         self.device_mesh = device_mesh
         self.rank = dist.get_rank()
+        # a planning mesh's group computes nothing (the fake backend)
+        self.planning = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -97,6 +110,14 @@ class HostMesh:
         """The process group of this rank's neighbours along `axis`, in
         coordinate order."""
         return self.device_mesh.get_group(axis)
+
+    def axis_groups(self, axis: str) -> List[List[int]]:
+        """Every group of ranks along `axis`, each in coordinate order (what
+        an HLO ``replica_groups`` attribute lists for a collective over
+        that axis)."""
+        i = self.axis_names.index(axis)
+        d = np.moveaxis(self.devices, i, -1)
+        return d.reshape(-1, d.shape[-1]).tolist()
 
     def __repr__(self) -> str:
         return f"HostMesh({self.shape}, rank={self.rank})"
@@ -167,6 +188,81 @@ def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
                          f"production mesh needs {need} ranks; {n} are "
                          "running")
     return make_mesh(shape, axes)
+
+
+class PlanMesh:
+    """A mesh of axis names and a shape, with no ranks behind it: what the
+    specs and the one-card dry-run read (``axis_names``,
+    ``devices.shape``)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.devices = np.arange(math.prod(shape)).reshape(tuple(shape))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def __repr__(self) -> str:
+        return f"PlanMesh({self.shape})"
+
+
+def one_card_mesh() -> PlanMesh:
+    """("data", "model") = (1, 1): the mesh the port's LLM programs run on
+    (whole tensors on one card)."""
+    return PlanMesh((1, 1), ("data", "model"))
+
+
+_MESHES: List[Any] = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh) -> Iterator[Any]:
+    """``with use_mesh(mesh):`` — the counterpart of the reference's ``with
+    mesh:``; nests, and the innermost mesh is `current_mesh()`."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh():
+    """The mesh of the innermost `use_mesh`, or None outside one (the
+    counterpart of the reference's ``moe_ep._physical_mesh()``)."""
+    return _MESHES[-1] if _MESHES else None
+
+
+@contextlib.contextmanager
+def planning_mesh(multi_pod: bool = False) -> Iterator[HostMesh]:
+    """The production mesh in this process, for specs only: when no group
+    is initialized, a group of 256 (512 with `multi_pod`) ranks on
+    torch's fake backend, this process rank 0, torn down on exit; else
+    the running group's `make_production_mesh`. A fake group's collectives
+    move no data, so the mesh is marked ``planning`` and the exchange
+    (``moe_ep``) and the sharded engine refuse it."""
+    own = not (dist.is_available() and dist.is_initialized())
+    if own:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", rank=0,
+                                world_size=512 if multi_pod else 256,
+                                store=FakeStore())
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        mesh.planning = own
+        yield mesh
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def refuse_planning(mesh, what: str) -> None:
+    """Raise when `mesh` is a `planning_mesh` of the fake backend: `what`
+    would exchange data its group cannot move."""
+    if getattr(mesh, "planning", False):
+        raise ValueError(f"{what} needs ranks that move data; {mesh!r} is a "
+                         "planning mesh on the fake backend (specs only)")
 
 
 def silo_axis_name(mesh) -> str:

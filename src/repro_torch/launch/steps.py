@@ -261,7 +261,13 @@ def make_federated_local_step(cfg: ModelConfig, tc: TrainConfig, *,
     batch) -> (silo_params, silo_opt_state, metrics)``: params and state
     lead with the silo dim d and are updated in place; `batch` leads with
     (d, local_batch, ...), every entry (``prefix_embeds`` too) sliced per
-    silo; each metric comes back with shape (d,)."""
+    silo; each metric comes back with shape (d,). Under a mesh
+    (``launch.mesh.use_mesh``) each silo's step runs in
+    ``shardingx.constrain.silo_context`` of the mesh's silo axis, so
+    logical "batch" never resolves onto it."""
+    from repro_torch.launch.mesh import current_mesh, silo_axis_name
+    from repro_torch.shardingx.constrain import silo_context
+
     train_step, opt = make_train_step(cfg, tc, use_kernels=use_kernels,
                                       device=device)
 
@@ -269,12 +275,15 @@ def make_federated_local_step(cfg: ModelConfig, tc: TrainConfig, *,
         _check_stacked(silo_params)
         _check_stacked(silo_opt_state)
         d = tree_leaves(silo_params)[0].shape[0]
+        mesh = current_mesh()
+        axis = silo_axis_name(mesh) if mesh is not None else None
         ms = []
         for i in range(d):
             state = {k: v[i] if k == "step" else _silo(v, i)
                      for k, v in silo_opt_state.items()}
-            _, state, m = train_step(_silo(silo_params, i), state,
-                                     _silo(batch, i))
+            with silo_context(axis):
+                _, state, m = train_step(_silo(silo_params, i), state,
+                                         _silo(batch, i))
             # the step rebinds the counter of the per-silo dict only
             silo_opt_state["step"][i] = state["step"]
             ms.append(m)

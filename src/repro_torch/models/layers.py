@@ -546,16 +546,15 @@ def moe_dispatch(idx: torch.Tensor, cap: int, E: int):
     return flat_e, slot, keep
 
 
-def apply_moe_gspmd(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Capacity-based dispatch by scatter and gather, the reference's
-    Switch semantics: capacity cap = max(int(capacity_factor·T·k/E), 1)
-    from this call's own T tokens (so a decode step's output depends on
-    its batch-mates), tokens over capacity dropped. Each (token, slot)
-    row is written to (expert, place) of an (E, cap + 1, d) buffer; the
+def moe_pack(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Route a (B, S, d) block's T = B·S tokens and pack them for the
+    experts, the reference's Switch semantics: capacity cap =
+    max(int(capacity_factor·T·k/E), 1) from these T tokens, each (token,
+    slot) row written to (expert, place) of an (E, cap + 1, d) buffer; the
     dropped rows all land in the overflow slot `cap`, which is cut off
     before any use, as the reference's ``buf[:, :cap]`` is (which of them
-    lands there does not matter). The expert products are batched
-    matmuls over E."""
+    lands there does not matter). -> ((E, cap, d) rows, the dispatch
+    (flat_e, slot, keep), gates (T, k), aux loss)."""
     mo = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -564,30 +563,66 @@ def apply_moe_gspmd(p: Params, x: torch.Tensor, cfg: ModelConfig):
     gates, idx, probs = _router_probs(p, x2d, mo)
     cap = max(int(mo.capacity_factor * T * k / E), 1)
     flat_e, slot, keep = moe_dispatch(idx, cap, E)
-
     src = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)   # t-major
     buf = x.new_zeros((E, cap + 1, d)).index_put_((flat_e, slot), src)
-    ebuf = buf[:, :cap]
-    g = torch.bmm(ebuf, p["w_gate"].to(x.dtype))
-    u = torch.bmm(ebuf, p["w_up"].to(x.dtype))
-    y = torch.bmm(F.silu(g) * u, p["w_down"].to(x.dtype))
+    return buf[:, :cap], (flat_e, slot, keep), gates, \
+        moe_aux_loss(probs, idx, mo)
 
-    # back to the (token, slot) rows: a dropped row reads the zero pad. A
-    # row gather of the flattened buffer, whose gradient is an index_add
-    # into distinct rows (the pad's, discarded, aside)
+
+def moe_experts(p: Params, rows: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """SwiGLU of experts lo .. lo + E' on their (E', n, d) rows: batched
+    matmuls over the experts. All E experts take the weights whole (a
+    slice's backward would write its gradient into a zeroed copy)."""
+    n = rows.shape[0]
+    w = {k: p[k] if n == p[k].shape[0] else p[k][lo:lo + n]
+         for k in ("w_gate", "w_up", "w_down")}
+    g = torch.bmm(rows, w["w_gate"].to(rows.dtype))
+    u = torch.bmm(rows, w["w_up"].to(rows.dtype))
+    return torch.bmm(F.silu(g) * u, w["w_down"].to(rows.dtype))
+
+
+def moe_combine(y: torch.Tensor, dispatch, gates: torch.Tensor,
+                shape) -> torch.Tensor:
+    """The experts' (E, cap, d) outputs back to the (B, S, d) block that
+    `moe_pack` packed: each token's k rows by their gates. A dropped row
+    reads the zero pad: a row gather of the flattened buffer, whose
+    gradient is an index_add into distinct rows (the pad's, discarded,
+    aside)."""
+    flat_e, slot, keep = dispatch
+    E, cap, d = y.shape
+    T, k = gates.shape
     y_pad = torch.cat([y, y.new_zeros((E, 1, d))], dim=1)
     back = y_pad.reshape(E * (cap + 1), d).index_select(
         0, flat_e * (cap + 1) + slot)                          # (T·k, d)
-    w = (gates.reshape(-1) * keep.float()).to(x.dtype)
-    out = torch.sum((back * w[:, None]).reshape(T, k, d), dim=1)
-    if mo.num_shared_experts:
-        out = out + apply_mlp(p["shared"], x2d)
-    return out.reshape(B, S, d), moe_aux_loss(probs, idx, mo)
+    w = (gates.reshape(-1) * keep.float()).to(y.dtype)
+    return torch.sum((back * w[:, None]).reshape(T, k, d),
+                     dim=1).reshape(shape)
+
+
+def moe_shared(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               out: torch.Tensor) -> torch.Tensor:
+    """`out` plus the shared experts' SwiGLU of the (B, S, d) block `x`,
+    where the config has them."""
+    if not cfg.moe.num_shared_experts:
+        return out
+    d = x.shape[-1]
+    return out + apply_mlp(p["shared"], x.reshape(-1, d)).reshape(x.shape)
+
+
+def apply_moe_gspmd(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Capacity-based dispatch by scatter and gather (`moe_pack`, the
+    experts as batched matmuls over E, `moe_combine`): the capacity comes
+    from this call's own tokens, so a decode step's output depends on its
+    batch-mates, and tokens over capacity are dropped."""
+    buf, dispatch, gates, aux = moe_pack(p, x, cfg)
+    out = moe_combine(moe_experts(p, buf), dispatch, gates, x.shape)
+    return moe_shared(p, x, cfg, out), aux
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """-> (out (B, S, d), aux loss). impl "dense", "gspmd" or "ep" (the
-    expert-parallel path, ``moe_ep``, which on one card is gspmd's)."""
+    expert-parallel path, ``moe_ep``: the exchange over a mesh's model
+    ranks, else gspmd's)."""
     impl = cfg.moe.impl
     if impl == "dense":
         return apply_moe_dense(p, x, cfg)

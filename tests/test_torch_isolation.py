@@ -58,7 +58,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.experiments.robust_ablation",
             "repro_torch.examples.end_to_end_driver",
             "repro_torch.examples.feddcl_llm_pretrain",
-            "repro_torch.examples.serve_batched"} <= set(mods)
+            "repro_torch.examples.serve_batched",
+            "repro_torch.shardingx", "repro_torch.shardingx.policy",
+            "repro_torch.shardingx.constrain", "repro_torch.launch.specs",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline_table",
+            "repro_torch.launch.mesh", "repro_torch.launch.fed_ranks"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
@@ -179,7 +184,9 @@ def test_paper_scripts_never_default_to_results():
 
 def test_llm_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.configs import REDUCED, InputShape, TrainConfig
-    from repro_torch.launch import serve, steps, train
+    from repro_torch.launch import dryrun, serve, specs, steps, train
+    from repro_torch.launch.mesh import (launcher_selfcheck, one_card_mesh,
+                                         run_ranks)
     from repro_torch.models import backbone as bb
     cfg = REDUCED["llama3.2-1b"]
     tc = TrainConfig(model=REDUCED["rwkv6-3b"],
@@ -200,7 +207,12 @@ def test_llm_entry_points_default_to_cuda(monkeypatch):
                  lambda: serve.main([]),
                  lambda: train.train("rwkv6-3b", steps=1),
                  lambda: train.train("rwkv6-3b", steps=1, silos=2),
-                 lambda: train.main(["--arch", "rwkv6-3b", "--reduced"])):
+                 lambda: train.main(["--arch", "rwkv6-3b", "--reduced"]),
+                 lambda: specs.make_plan(cfg, tc.shape, one_card_mesh()),
+                 lambda: dryrun.run_pair("llama3.2-1b", "decode_32k"),
+                 lambda: dryrun.main(["--arch", "llama3.2-1b",
+                                      "--shape", "decode_32k"]),
+                 lambda: run_ranks(launcher_selfcheck, 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     params = bb.init_params(cfg, gen, device="cpu")

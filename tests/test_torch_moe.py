@@ -64,8 +64,6 @@ from _jax_oracle import oracle_on_cpu  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
 ROUTER_TOL = 1e-6
-# what the expert-parallel error names: the ROADMAP item, by name
-LAUNCH_MESH_QUEUE = "Queue 1 item 4, the launch tier's mesh"
 GRANITE, DEEPSEEK = "granite-moe-1b-a400m", "deepseek-v3-671b"
 B, S = 2, 24
 F32J = dict(compute_dtype=jnp.float32)
@@ -286,8 +284,10 @@ def test_gspmd_without_drops_equals_dense():
 
 
 def test_moe_ep_takes_gspmd_alone_and_raises_in_a_group(monkeypatch):
-    """One process: the reference's fallback (the gspmd path). A process
-    in a group of ranks would need the all_to_all: it raises."""
+    """One process: the reference's fallback (the gspmd path). A rank of a
+    group with no mesh in context (``launch.mesh.use_mesh``) takes it
+    too, as the reference's does outside ``with mesh:``; the exchange
+    itself is tests/test_torch_moe_ep.py's."""
     _, tc, _, pt = _layer0("granite-dense")
     x = torch.as_tensor(_x(5, (1, 12, tc.d_model)))
     ep, gs = _with_impl(tc, "ep"), _with_impl(tc, "gspmd")
@@ -296,8 +296,8 @@ def test_moe_ep_takes_gspmd_alone_and_raises_in_a_group(monkeypatch):
     assert torch.equal(o_ep, o_gs) and torch.equal(a_ep, a_gs)
     monkeypatch.setattr(tmoe_ep.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(tmoe_ep.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match=LAUNCH_MESH_QUEUE):
-        tlayers.apply_moe(pt, x, ep)
+    o_ep, a_ep = tlayers.apply_moe(pt, x, ep)
+    assert torch.equal(o_ep, o_gs) and torch.equal(a_ep, a_gs)
 
 
 # --------------------------------------------------------------------------

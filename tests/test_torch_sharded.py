@@ -35,6 +35,7 @@ from repro_torch import weights  # noqa: E402
 from repro_torch.analysis import collective_census  # noqa: E402
 from repro_torch.core import federated as tfed  # noqa: E402
 from repro_torch.launch import fed_ranks, mesh as tmesh  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -300,6 +301,16 @@ def test_sharded_matches_unsharded_all_aggregators(
                         kw, kw["schedule"], per_rank, i)
     assert got["collectives"]["census"] == {"all-reduce": LEAVES + 1}
     assert got["collectives"]["shards"] == world
+    # the round's collective records, as launch.roofline reads them: one
+    # all-reduce over the data axis's one group of every rank
+    recs = got["collectives"]["records"]
+    wire = got["collectives"]["wire_bytes_per_round"]
+    assert [(r["kind"], r["groups"]) for r in recs] == [
+        ("all-reduce", [list(range(world))])]
+    assert roofline.collective_bytes(recs) == {"all-reduce": wire,
+                                               "total": wire}
+    assert roofline.cross_block_bytes(recs, block=1) == wire
+    assert roofline.cross_block_bytes(recs, block=world) == 0
 
 
 def test_sharded_streamed_eval_matches_unsharded(two_ranks):
