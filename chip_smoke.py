@@ -126,7 +126,19 @@ these paths through the port's public entry points:
   ranks sharing the card, one all_to_all each way over gloo through
   pinned host memory, forward and backward of 2 x 2048 tokens in fp32,
   held to the plain one-process emulation of the exchange within 1e-5,
-  with its bytes and ms a layer.
+  with its bytes and ms a layer;
+- the sharded LLM program (``repro_torch.launch.llm_ranks``): first a
+  probe of which collectives a plain gloo group takes for CUDA tensors
+  (2 ranks); then 4 ranks sharing the card on a (2, 2) ("data",
+  "model") mesh over the staged backend (``launch.staged``): llama3.2-1b
+  at full width and depth with its params laid out by ``param_specs``
+  as DTensors, an fp32 loss and gradient of 2 x 512 tokens held to the
+  unsharded computation on the card (loss 1e-5, gradients 1e-4 over
+  max(1, |g|)), 3 bf16 train steps of 4 x 2048 timed (step s by rank,
+  the staged collectives' calls, ms and bytes a step, peak memory a
+  rank), and granite-moe-1b's expert-parallel MoE layer with its FSDP
+  gather over "data" held to the per-block emulation (1e-5) with its ms
+  a layer.
 
 Each phase prints one JSON line. Host-bound rows (step 4's rounds, decode,
 the server, the train step, the federated rounds) give min / median / max
@@ -140,6 +152,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+from concurrent.futures import ThreadPoolExecutor
 import json
 import os
 import statistics
@@ -193,9 +206,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
-from repro_torch.launch import dryrun, fed_ranks  # noqa: E402
+from repro_torch.launch import dryrun, fed_ranks, llm_ranks  # noqa: E402
 from repro_torch.launch import roofline, roofline_table  # noqa: E402
-from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.launch.mesh import RankError, run_ranks  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.steps import (make_captured_serve_step,  # noqa: E402
                                       make_fedavg_sync_step,
@@ -359,6 +372,14 @@ DRYRUN_PEAK = (0.8, 1.25)
 EP_RANKS, EP_B, EP_S, EP_AUX = 2, 2, 2048, 0.01
 EP_TOL = 1e-5            # over max(1, |emulation|), each output and gradient
 EP_REPEATS = 3           # warm forward + backward passes before the timed one
+# the sharded LLM program: SLLM_RANKS ranks on the card, a SLLM_MESH
+# ("data", "model") mesh; llama3.2-1b's fp32 check at SLLM_CHECK tokens,
+# SLLM_STEPS bf16 train steps at SLLM_TRAIN tokens; granite's EP layer at
+# SLLM_EP tokens, SLLM_EP_REPEATS forward passes
+SLLM_RANKS, SLLM_MESH = 4, (2, 2)
+SLLM_CHECK, SLLM_TRAIN, SLLM_STEPS = (2, 512), (4, 2048), 3
+SLLM_EP, SLLM_EP_REPEATS = (4, 2048), 3
+SLLM_LOSS_TOL, SLLM_GRAD_TOL = 1e-5, 1e-4
 # steps of the new decode rows' profiled runs and captured-vs-eager gap: the
 # profiler's post-processing grows with the kernels it saw (rwkv6-3b runs
 # ~2,800 a step)
@@ -3802,6 +3823,76 @@ def phase_moe_ep(dev, smi):
     return row
 
 
+def phase_sharded_llm(dev, smi):
+    """The sharded LLM program on ranks of one card (module docstring):
+    the gloo probe, then llama3.2-1b's checked loss and gradient, its
+    timed train steps and granite's EP layer, one group of SLLM_RANKS
+    ranks."""
+    t_phase = time.perf_counter()
+    def probe_one(name):
+        try:
+            got = run_ranks(llm_ranks.gloo_probe, 2, args=(name,),
+                            device=dev.type, backend="gloo", timeout=120)
+            return got[0] if got[0] == got[1] else got
+        except (RankError, TimeoutError) as e:
+            return f"{type(e).__name__}: {str(e).splitlines()[-1]}"
+
+    # one group a collective (a crash in gloo ends its group), all at once
+    with ThreadPoolExecutor(len(llm_ranks.PROBED)) as pool:
+        probe = dict(zip(llm_ranks.PROBED,
+                         pool.map(probe_one, llm_ranks.PROBED)))
+    emit({"phase": "sharded_llm.gloo_probe", "cuda_tensors_on_gloo": probe,
+          "probe_s": time.perf_counter() - t_phase, "device": smi})
+    torch.cuda.empty_cache()
+    spec = {"mesh": SLLM_MESH, "check": SLLM_CHECK, "train": SLLM_TRAIN,
+            "steps": SLLM_STEPS, "compute_dtype": "bfloat16",
+            "ep": SLLM_EP, "ep_repeats": SLLM_EP_REPEATS}
+    t0 = time.perf_counter()
+    res = run_ranks(llm_ranks.card_llama, SLLM_RANKS, args=(spec,),
+                    device=dev.type, backend="staged", timeout=900)
+    ranks_s = time.perf_counter() - t0
+    r0 = res[0]
+    steps = [[st for st in r["steps"]] for r in res]
+    row = {"phase": "sharded_llm", "arch": "llama3.2-1b",
+           "ranks": SLLM_RANKS, "mesh": list(SLLM_MESH),
+           "check_tokens": list(SLLM_CHECK),
+           "loss_unsharded": r0["loss_unsharded"],
+           "loss_sharded": r0["loss_sharded"], "loss_gap": r0["loss_gap"],
+           "grad_gap": r0["grad_gap"],
+           "check_s_by_rank": [r["check_s"] for r in res],
+           "check_collectives_rank0": r0["check_collectives"],
+           "train_tokens": list(SLLM_TRAIN), "compute_dtype": "bfloat16",
+           "step_s_by_rank": [[st["s"] for st in s_] for s_ in steps],
+           "losses": [st["loss"] for st in steps[0]],
+           "collective_ms_by_rank": [[1e3 * st["collectives"]["seconds"]
+                                      for st in s_] for s_ in steps],
+           "staged_bytes_by_rank": [[st["collectives"]["staged_bytes"]
+                                     for st in s_] for s_ in steps],
+           "wire_bytes_by_rank": [[st["collectives"]["wire_bytes"]
+                                   for st in s_] for s_ in steps],
+           "calls_rank0": [st["collectives"]["calls"] for st in steps[0]],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in res],
+           "ep_tokens": list(SLLM_EP),
+           "ep_ms_by_rank": [[1e3 * t for t in r["ep_s"]] for r in res],
+           "ep_collectives_rank0": r0["ep_collectives"],
+           "ep_out_gap": r0["ep_out_gap"], "ep_aux_gap": r0["ep_aux_gap"],
+           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
+           "device": smi}
+    emit(row)
+    check(r0["loss_gap"] <= SLLM_LOSS_TOL,
+          f"sharded llama loss gap {r0['loss_gap']}")
+    check(r0["grad_gap"] <= SLLM_GRAD_TOL,
+          f"sharded llama gradient gap {r0['grad_gap']}")
+    check(all(np.isfinite(st["loss"]) for s_ in steps for st in s_),
+          "sharded llama train losses finite")
+    check(r0["ep_out_gap"] <= EP_TOL and r0["ep_aux_gap"] <= EP_TOL,
+          f"sharded EP layer out {r0['ep_out_gap']} / aux "
+          f"{r0['ep_aux_gap']} vs the per-block emulation")
+    check(all(r["check_collectives"]["wire_bytes"] > 0 for r in res),
+          "the sharded step moved nothing between ranks")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3813,6 +3904,10 @@ def main() -> int:
           "TF32 matmuls must be off")
     dev = torch.device("cuda:0")
     smi = phase_device()
+    if sys.argv[1:2] == ["--phase"]:
+        # one phase alone (a development run; prints no contract line)
+        globals()["phase_" + sys.argv[2]](dev, smi)
+        return 0
     peak = peaks_for(smi)
     rows = phase_kernel_check(peak)
     model, data, fit_row = phase_fit(dev)
@@ -3845,6 +3940,8 @@ def main() -> int:
     phase_dryrun(dev)
     torch.cuda.empty_cache()
     phase_moe_ep(dev, smi)
+    torch.cuda.empty_cache()
+    phase_sharded_llm(dev, smi)
     torch.cuda.empty_cache()
     zamba_row = phase_zamba2_hybrid(dev)
     torch.cuda.empty_cache()

@@ -68,9 +68,11 @@ def mesh_amortization(result_dir: str = "results_torch/dryrun", H: int = 4):
     """Per-step collective bytes: baseline vs feddcl local + sync / H, from
     the dry-run's train_4k records. Only a record of a mesh of more than
     one rank with a measured ``collective_bytes_per_device`` counts: the
-    one-card mesh moves nothing between ranks, and a production mesh's
-    record is specs only (null costs) until a sharded LLM program runs
-    across cards, so today this returns []."""
+    one-card mesh moves nothing between ranks, and a pair whose per-rank
+    trace failed keeps a specs-only record (null costs). The production
+    meshes' records are traced per rank (``launch.dryrun``), so a sweep
+    with ``--both-meshes`` in the three modes gives a row per arch and
+    mesh."""
     out = {}
     for f in glob.glob(os.path.join(result_dir, "*__train_4k__*__*.json")):
         with open(f) as fh:

@@ -28,9 +28,11 @@ inside it ``current_mesh()`` is the mesh (what ``moe_ep`` and
 ``shardingx.constrain`` read). ``one_card_mesh()`` is the ("data",
 "model") = (1, 1) mesh the port's LLM programs run on, and
 ``planning_mesh(multi_pod)`` a production mesh in one process (a
-fake-backend group of 256 / 512 ranks) for the dry-run's specs: the
-counterpart of the reference's 512 placeholder devices, which compute
-nothing.
+fake-backend group of 256 / 512 ranks) for the dry-run's specs and
+per-rank traces: the counterpart of the reference's 512 placeholder
+devices, which compute nothing. ``make_mesh(..., device="cuda")`` is the
+mesh of a sharded LLM program on cards (on one card, with
+``run_ranks(..., backend="staged")``).
 """
 from __future__ import annotations
 
@@ -111,6 +113,23 @@ class HostMesh:
         coordinate order."""
         return self.device_mesh.get_group(axis)
 
+    def submesh(self, axes: Sequence[str]) -> "HostMesh":
+        """The mesh of `axes` that holds this rank: its ranks are those
+        sharing this rank's coordinates on the other axes, its
+        ``device_mesh`` the matching slice of this one's (the
+        counterpart of a ``shard_map`` body's view of the mesh's other
+        axes)."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        sub = object.__new__(HostMesh)
+        sub.axis_names = axes
+        sub.devices = self.devices[tuple(
+            slice(None) if a in axes else self.coordinate(a)
+            for a in self.axis_names)]
+        sub.device_mesh = self.device_mesh[axes if len(axes) > 1
+                                           else axes[0]]
+        sub.rank, sub.planning = self.rank, self.planning
+        return sub
+
     def axis_groups(self, axis: str) -> List[List[int]]:
         """Every group of ranks along `axis`, each in coordinate order (what
         an HLO ``replica_groups`` attribute lists for a collective over
@@ -132,11 +151,20 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> HostMesh:
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              device: str = "cpu") -> HostMesh:
     """A mesh of the given shape and axis names over the first
     prod(shape) ranks of the default group (the counterpart of
     ``jax.sharding.Mesh(devices.reshape(shape), axis_names)``). Every rank
-    of the group calls it; a rank past the mesh holds no coordinate."""
+    of the group calls it; a rank past the mesh holds no coordinate.
+
+    `device` is the ``DeviceMesh``'s device type: "cpu" (the default: the
+    sharded engine's collectives on host tensors) or "cuda", the mesh a
+    sharded LLM program's DTensors live on, every rank's blocks on its
+    ``cuda:{rank % device_count}`` (on one card all ranks share
+    ``cuda:0``; start the ranks with ``run_ranks(..., backend="staged")``
+    so DTensor's collectives stage through host memory into gloo,
+    ``launch.staged``)."""
     shape = tuple(int(s) for s in shape)
     n = _world()
     if len(shape) != len(axis_names) or min(shape, default=0) < 1:
@@ -146,8 +174,10 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> HostMesh:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
                          f"{math.prod(shape)} ranks, but only {n} are "
                          "running")
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"a mesh lives on 'cpu' or 'cuda', not {device!r}")
     from torch.distributed.device_mesh import init_device_mesh
-    dm = init_device_mesh("cpu", shape, mesh_dim_names=tuple(axis_names))
+    dm = init_device_mesh(device, shape, mesh_dim_names=tuple(axis_names))
     return HostMesh(shape, axis_names, dm)
 
 
@@ -234,22 +264,32 @@ def current_mesh():
 
 
 @contextlib.contextmanager
-def planning_mesh(multi_pod: bool = False) -> Iterator[HostMesh]:
-    """The production mesh in this process, for specs only: when no group
-    is initialized, a group of 256 (512 with `multi_pod`) ranks on
-    torch's fake backend, this process rank 0, torn down on exit; else
-    the running group's `make_production_mesh`. A fake group's collectives
-    move no data, so the mesh is marked ``planning`` and the exchange
-    (``moe_ep``) and the sharded engine refuse it."""
+def planning_mesh(multi_pod: bool = False, *, rank: int = 0,
+                  shape: Optional[Sequence[int]] = None,
+                  axis_names: Optional[Sequence[str]] = None
+                  ) -> Iterator[HostMesh]:
+    """The production mesh in this process, for specs and per-rank traces:
+    when no group is initialized, a group of 256 (512 with `multi_pod`)
+    ranks on torch's fake backend, this process `rank`, torn down on
+    exit; else the running group's `make_production_mesh`. `shape` and
+    `axis_names` give another mesh on the fake backend (a test's small
+    one). A fake group's collectives move no data, so the mesh is marked
+    ``planning``: the sharded engine refuses it, and ``moe_ep``'s
+    exchange runs on it only on fake or meta tensors (a trace)."""
     own = not (dist.is_available() and dist.is_initialized())
+    if shape is not None and not own:
+        raise ValueError("a planning mesh of another shape needs no group "
+                         "running")
     if own:
         from torch.testing._internal.distributed.fake_pg import FakeStore
 
-        dist.init_process_group("fake", rank=0,
-                                world_size=512 if multi_pod else 256,
+        world = math.prod(shape) if shape is not None \
+            else (512 if multi_pod else 256)
+        dist.init_process_group("fake", rank=rank, world_size=world,
                                 store=FakeStore())
     try:
-        mesh = make_production_mesh(multi_pod=multi_pod)
+        mesh = make_production_mesh(multi_pod=multi_pod) if shape is None \
+            else make_mesh(shape, axis_names)
         mesh.planning = own
         yield mesh
     finally:
@@ -262,7 +302,8 @@ def refuse_planning(mesh, what: str) -> None:
     would exchange data its group cannot move."""
     if getattr(mesh, "planning", False):
         raise ValueError(f"{what} needs ranks that move data; {mesh!r} is a "
-                         "planning mesh on the fake backend (specs only)")
+                         "planning mesh on the fake backend (specs and "
+                         "traces only)")
 
 
 def silo_axis_name(mesh) -> str:
@@ -346,6 +387,9 @@ def _rank_entry(spec_path: str, rank: int) -> None:
             _RANK_DEVICE = torch.device("cuda", idx)
         else:
             _RANK_DEVICE = torch.device("cpu")
+        if spec["backend"] == "staged":
+            from repro_torch.launch import staged
+            staged.register(spec["kind"])
         dist.init_process_group(
             "gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
             rank=rank, world_size=world,
@@ -383,10 +427,13 @@ def _first_error(tmp: str, codes: List[Optional[int]]) -> Tuple[int, str]:
 
 def run_ranks(fn: Union[str, Callable], world: int, *, args: Tuple = (),
               kwargs: Optional[Dict] = None, device: DeviceLike = None,
-              timeout: float = 600.0) -> List[Any]:
+              timeout: float = 600.0, backend: str = "gloo") -> List[Any]:
     """Start `world` ranks of one gloo group and run ``fn(*args,
     **kwargs)`` on each; returns the list of what each rank returned
-    (picklable; tensors on the CPU), by rank.
+    (picklable; tensors on the CPU), by rank. ``backend="staged"``
+    also gives each rank ``launch.staged``'s kernels for the functional
+    collectives on its device type (host staging into the gloo group,
+    for DTensors on a card).
 
     `fn` is a module-level function or its 'package.module:name'. Ranks
     are fresh Python processes (they import the target's module, never the
@@ -403,6 +450,8 @@ def run_ranks(fn: Union[str, Callable], world: int, *, args: Tuple = (),
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     kind = resolve_device(device).type
+    if backend not in ("gloo", "staged"):
+        raise ValueError(f"backend {backend!r}: 'gloo' or 'staged'")
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"ranks compute on 'cpu' or 'cuda', not {kind!r}")
     target = _target_name(fn)
@@ -411,7 +460,8 @@ def run_ranks(fn: Union[str, Callable], world: int, *, args: Tuple = (),
     _write(spec_path, pickle.dumps({
         "target": target, "args": tuple(args),
         "kwargs": dict(kwargs or {}), "kind": kind, "tmp": tmp,
-        "world": world, "timeout": timeout, "parent": os.getpid()}))
+        "world": world, "timeout": timeout, "parent": os.getpid(),
+        "backend": backend}))
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [p for p in sys.path if p and os.path.isdir(p)]))

@@ -6,9 +6,10 @@ The reference's ``make_experiments_md.main`` concatenates a hand-kept
 ``EXPERIMENTS.header.md`` and hillclimb records into ``EXPERIMENTS.md``;
 neither is in this repo, so that part has no counterpart here.
 
-Records of the one-card mesh carry the trace's ``peak_bytes`` and
-``fits_one_card``; `table` adds a "peak GiB | fits" pair of columns when
-the records it shows have them. A spec-level record (a production mesh,
+Traced records (the one-card mesh, or a production mesh per rank) carry
+the trace's ``peak_bytes`` and ``fits_one_card``; `table` adds a "peak
+GiB | fits" pair of columns when the records it shows have them. A
+spec-level record (a production-mesh pair whose per-rank trace failed,
 ``cost_source: "specs only"``) shows its cost columns as "—".
 
   python -m repro_torch.launch.roofline_table [dir] [--md OUT]
@@ -97,11 +98,11 @@ def missing(recs, mesh: str, mode: str = "baseline") -> List[Tuple[str, str]]:
 
 
 def fed_table(result_dir: str = RESULT_DIR) -> str:
-    """Cross-pod bytes from the boundary-classified ``__xs`` records: the
-    paper's communication claim on the scarce link. A record counts only
-    with a measured ``cross_silo_bytes_per_device``, which needs a sharded
-    program across cards: until one writes such records the table has its
-    header alone."""
+    """Cross-pod bytes from the boundary-classified ``__xs`` records (the
+    dry-run's ``--multi-pod --tag xs`` in the three modes): the paper's
+    communication claim on the scarce link. A record counts only with a
+    measured ``cross_silo_bytes_per_device``, which the per-rank trace
+    gives; a specs-only record (a failed trace) has none."""
     recs = {}
     for f in glob.glob(os.path.join(result_dir, "*__xs.json")):
         with open(f) as fh:

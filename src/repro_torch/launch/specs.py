@@ -8,6 +8,12 @@ trees), made by the port's own constructors, so a plan describes the
 program the step factory builds. Specs are trees of ``shardingx.policy.P``.
 The port's steps update params and optimizer state in place, where the
 reference's jitted step donates them; ``donate_argnums`` stays as data.
+
+On a mesh of running ranks (``launch.mesh.HostMesh``) a plan also runs:
+``plan.place(args)`` lays real arguments out by its ``in_specs`` as
+DTensors (``shardingx.policy.distribute_tree``), and ``plan.step_fn(*placed)``
+under ``launch.mesh.use_mesh(mesh)`` is the sharded program, the
+counterpart of the reference's ``jax.jit(step, in_shardings=...)``.
 """
 from __future__ import annotations
 
@@ -44,6 +50,24 @@ class LoweringPlan:
     in_specs: Tuple[Any, ...]       # trees of P, one per argument
     out_specs: Any                  # tree of P matching the step's outputs
     donate_argnums: Tuple[int, ...] = ()
+    mesh: Any = None                # the mesh the specs are for
+
+    def place(self, args: Tuple[Any, ...]) -> Tuple[Any, ...]:
+        """`args` (trees of whole tensors shaped as ``self.args``, the same
+        on every rank) laid out by ``in_specs`` on the plan's mesh of
+        running ranks; raises on a mesh without ranks or a planning one."""
+        from repro_torch.launch.mesh import refuse_planning
+        from repro_torch.shardingx.policy import distribute_tree
+
+        if getattr(self.mesh, "device_mesh", None) is None:
+            raise ValueError(f"{self.name}: a plan for {self.mesh!r} has no "
+                             "ranks to place arguments on")
+        refuse_planning(self.mesh, f"placing {self.name}'s arguments")
+        if len(args) != len(self.in_specs):
+            raise ValueError(f"{self.name} takes {len(self.in_specs)} "
+                             f"arguments, not {len(args)}")
+        return tuple(distribute_tree(a, s, self.mesh)
+                     for a, s in zip(args, self.in_specs))
 
 
 def resolve_arch_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
@@ -128,7 +152,8 @@ def make_plan(cfg_raw: ModelConfig, shape: InputShape, mesh, *,
     """mode: baseline | feddcl | feddcl_sync (train shapes) — decode/prefill
     ignore mode. moe_impl overrides the MoE dispatch (hillclimb: "ep").
     The step runs on `device` (CUDA unless the caller asks for the CPU),
-    with ``use_kernels=use_pallas``."""
+    with ``use_kernels=use_pallas``; on a mesh of running ranks
+    ``plan.place`` lays its arguments out (module docstring)."""
     cfg = resolve_arch_for_shape(cfg_raw, shape)
     if moe_impl and cfg.moe is not None:
         cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe,
@@ -143,13 +168,17 @@ def make_plan(cfg_raw: ModelConfig, shape: InputShape, mesh, *,
 
     if shape.kind == "train":
         if mode == "feddcl":
-            return _fed_local_plan(cfg, shape, mesh, tc, use_pallas, dev)
-        if mode == "feddcl_sync":
-            return _fed_sync_plan(cfg, shape, mesh, tc, dev)
-        return _train_plan(cfg, shape, mesh, tc, use_pallas, dev)
-    if shape.kind == "prefill":
-        return _prefill_plan(cfg, shape, mesh, tc, use_pallas, dev)
-    return _decode_plan(cfg, shape, mesh, tc, dev)
+            plan = _fed_local_plan(cfg, shape, mesh, tc, use_pallas, dev)
+        elif mode == "feddcl_sync":
+            plan = _fed_sync_plan(cfg, shape, mesh, tc, dev)
+        else:
+            plan = _train_plan(cfg, shape, mesh, tc, use_pallas, dev)
+    elif shape.kind == "prefill":
+        plan = _prefill_plan(cfg, shape, mesh, tc, use_pallas, dev)
+    else:
+        plan = _decode_plan(cfg, shape, mesh, tc, dev)
+    plan.mesh = mesh
+    return plan
 
 
 def _batch_shapes(cfg: ModelConfig, batch: int, seq: int,

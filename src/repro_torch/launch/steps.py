@@ -7,6 +7,21 @@ step, eager or captured.
 the step moves its token inputs there, so a caller can hand over NumPy.
 ``make_captured_serve_step`` is the port's counterpart of the reference's
 ``jax.jit`` of the serve step: the same step as CUDA graphs, replayed.
+
+Sharded steps: the counterpart of the reference's ``jax.jit(step,
+in_shardings=...)`` is the same step on DTensor arguments laid out by a
+plan's specs (``launch.specs.LoweringPlan.place``), called under
+``launch.mesh.use_mesh(mesh)`` on every rank of the mesh. The model's
+``constrain`` sites then redistribute as the reference's hints lay out,
+DTensor's per-op rules place everything else (GSPMD's propagation in the
+reference), and plain tensors built inside the model count as replicated
+(``shardingx.constrain.replicated_plain``, taken here). The train step's
+gradients come back laid out as their params, its global norm reduces
+across ranks, and the AdamW update runs piece by piece on each rank's
+local blocks, since it is elementwise. Metrics come back as plain
+tensors. The federated local step runs each rank's own silos on the
+sub-mesh of the other axes (no collective spans two silo rows); the sync
+gathers the silo dim over the silo axis.
 """
 from __future__ import annotations
 
@@ -26,6 +41,8 @@ from repro_torch.models import backbone as bb
 from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
                                global_norm, sgd)
 from repro_torch.optim.schedules import cosine_with_warmup
+from repro_torch.shardingx.constrain import is_dtensor, replicated_plain
+from repro_torch.shardingx.policy import contiguous_strides
 from repro_torch.tree import tree_leaves, tree_map
 
 # elements of one piece of the optimizer update: bounds its temporaries
@@ -38,6 +55,8 @@ BATCH_KEYS = ("tokens", "labels", "prefix_embeds")
 
 
 def _on(x, dev: torch.device) -> torch.Tensor:
+    if is_dtensor(x):
+        return x                      # laid out on its mesh already
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     return torch.as_tensor(np.asarray(x), device=dev)
@@ -55,12 +74,14 @@ def make_prefill_step(cfg: ModelConfig, *, cache_len: int,
     @torch.no_grad()
     def prefill_step(params, batch):
         prefix = batch.get("prefix_embeds")
-        return bb.prefill(params, _on(batch["tokens"], dev), cfg,
-                          cache_len=cache_len,
-                          prefix_embeds=None if prefix is None
-                          else _on(prefix, dev),
-                          compute_dtype=compute_dtype,
-                          cache_dtype=cache_dtype, use_kernels=use_kernels)
+        with replicated_plain(_sharded(params)):
+            return bb.prefill(params, _on(batch["tokens"], dev), cfg,
+                              cache_len=cache_len,
+                              prefix_embeds=None if prefix is None
+                              else _on(prefix, dev),
+                              compute_dtype=compute_dtype,
+                              cache_dtype=cache_dtype,
+                              use_kernels=use_kernels)
 
     return prefill_step
 
@@ -71,9 +92,10 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 
     @torch.no_grad()
     def serve_step(params, state, tokens, cur_pos):
-        return bb.decode_step(params, state, _on(tokens, dev),
-                              _on(cur_pos, dev), cfg,
-                              compute_dtype=compute_dtype)
+        with replicated_plain(_sharded(params)):
+            return bb.decode_step(params, state, _on(tokens, dev),
+                                  _on(cur_pos, dev), cfg,
+                                  compute_dtype=compute_dtype)
 
     return serve_step
 
@@ -138,6 +160,21 @@ class CapturedServeStep:
 make_captured_serve_step = CapturedServeStep
 
 
+def _sharded(tree: Any) -> bool:
+    """Whether a step's tree is laid out on a mesh (DTensor leaves)."""
+    return is_dtensor(tree_leaves(tree)[0])
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A replicated (or partial) DTensor as one plain tensor, the same on
+    every rank; a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def make_optimizer(tc: TrainConfig):
     sched = cosine_with_warmup(tc.learning_rate, tc.warmup_steps,
                                tc.total_steps)
@@ -178,34 +215,55 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
+        sharded = _sharded(params)
         live = [p.detach().requires_grad_() for p in leaves]
         it = iter(live)
         tree = tree_map(lambda _: next(it), params)
         b = {k: _on(batch[k], dev) for k in BATCH_KEYS if k in batch}
-        loss, metrics = bb.loss_fn(tree, b, cfg, use_kernels=use_kernels,
-                                   remat=tc.remat,
-                                   compute_dtype=compute_dtype)
-        grads = list(torch.autograd.grad(loss, live, allow_unused=True))
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        del tree, live
+        with replicated_plain(sharded):
+            loss, metrics = bb.loss_fn(tree, b, cfg,
+                                       use_kernels=use_kernels,
+                                       remat=tc.remat,
+                                       compute_dtype=compute_dtype)
+            grads = list(torch.autograd.grad(loss, live, allow_unused=True))
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            if sharded:
+                # each gradient laid out as its param (and its moments)
+                grads = [g.redistribute(p.device_mesh, p.placements)
+                         for p, g in zip(leaves, grads)]
+            del tree, live
+            with torch.no_grad():
+                gnorm = _plain(global_norm(grads))
+                metrics = {k: _plain(v.detach()) for k, v in metrics.items()}
         with torch.no_grad():
-            gnorm = global_norm(grads)
             moments = [k for k in opt_state if k != "step"]
             moment_leaves = [tree_leaves(opt_state[k]) for k in moments]
-            step = opt_state["step"]
+            step = _local(opt_state["step"])
+            # elementwise from here: each rank updates its own blocks, so
+            # the moments must be split as their params
             for j, p in enumerate(leaves):
-                g, grads[j] = grads[j], None
-                for p_, g_, *ms in zip(_pieces(p), _pieces(g),
-                                       *(_pieces(m[j]) for m in moment_leaves)):
+                if sharded and any(not is_dtensor(m[j]) or
+                                   m[j].placements != p.placements
+                                   for m in moment_leaves):
+                    raise ValueError(
+                        f"optimizer state leaf {j} is not laid out as its "
+                        f"param {p.placements} (place it by the plan's "
+                        "specs)")
+                g, grads[j] = _local(grads[j]), None
+                for p_, g_, *ms in zip(_pieces(_local(p)), _pieces(g),
+                                       *(_pieces(_local(m[j]))
+                                         for m in moment_leaves)):
                     g_, _ = clip_by_global_norm(g_, tc.grad_clip, norm=gnorm)
                     upd, new = opt.update(
                         g_, {"step": step, **dict(zip(moments, ms))}, p_)
                     for k, m_ in zip(moments, ms):
                         m_.copy_(new[k])
                     p_.copy_(apply_updates(p_, upd))
-            opt_state["step"] = new["step"]
-        metrics = {k: v.detach() for k, v in metrics.items()}
+            if is_dtensor(opt_state["step"]):
+                opt_state["step"].to_local().copy_(new["step"])
+            else:
+                opt_state["step"] = new["step"]
         metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
@@ -274,9 +332,12 @@ def make_federated_local_step(cfg: ModelConfig, tc: TrainConfig, *,
     def local_step(silo_params, silo_opt_state, batch):
         _check_stacked(silo_params)
         _check_stacked(silo_opt_state)
-        d = tree_leaves(silo_params)[0].shape[0]
         mesh = current_mesh()
         axis = silo_axis_name(mesh) if mesh is not None else None
+        if _sharded(silo_params):
+            return _sharded_local_step(train_step, mesh, axis, silo_params,
+                                       silo_opt_state, batch)
+        d = tree_leaves(silo_params)[0].shape[0]
         ms = []
         for i in range(d):
             state = {k: v[i] if k == "step" else _silo(v, i)
@@ -290,6 +351,70 @@ def make_federated_local_step(cfg: ModelConfig, tc: TrainConfig, *,
         return silo_params, silo_opt_state, _stack(ms)
 
     return local_step, opt
+
+
+def _silo_dim_axes(mesh, axis: str):
+    """The mesh's silo axis and the others: the sub-mesh a silo's step
+    runs on."""
+    if axis is None:
+        raise ValueError("a silo stack of DTensors needs a mesh in context "
+                         "(launch.mesh.use_mesh)")
+    return mesh.submesh([a for a in mesh.axis_names if a != axis])
+
+
+def _silo_view(t: torch.Tensor, i: int, sub, axis_pos: int):
+    """Silo `i` of this rank's block of a silo-stacked DTensor `t` (silo
+    dim split over mesh axis `axis_pos` only) as a DTensor on `sub`: a
+    view of the block, so in-place writes land in the stack."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    pl = list(t.placements)
+    if not pl[axis_pos].is_shard(0) and t.device_mesh.size(axis_pos) > 1:
+        raise ValueError(f"the silo dim of a {tuple(t.shape)} stack is not "
+                         f"split over the silo axis: {t.placements}")
+    if any(p.is_shard(0) for j, p in enumerate(pl) if j != axis_pos):
+        raise ValueError(f"the silo dim is split over more than the silo "
+                         f"axis: {t.placements}")
+    del pl[axis_pos]
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in pl]
+    shape = tuple(t.shape[1:])
+    return DTensor.from_local(t.to_local()[i], sub.device_mesh, pl,
+                              run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def _sharded_local_step(train_step, mesh, axis, silo_params,
+                        silo_opt_state, batch):
+    """The local step on silo stacks of DTensors: this rank's block of the
+    silo axis, each of its silos a DTensor on the sub-mesh of the other
+    axes, so every collective of a silo's step stays in its silo row.
+    Metrics come back as (d,) DTensors split over the silo axis."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.shardingx.constrain import silo_context
+    from repro_torch.launch.mesh import use_mesh
+
+    sub = _silo_dim_axes(mesh, axis)
+    pos = mesh.axis_names.index(axis)
+    step_l = silo_opt_state["step"].to_local()
+    d_loc = step_l.shape[0]
+    ms = []
+    for i in range(d_loc):
+        view = lambda t: _silo_view(t, i, sub, pos)   # noqa: E731
+        state = {k: step_l[i] if k == "step" else tree_map(view, v)
+                 for k, v in silo_opt_state.items()}
+        with use_mesh(sub), silo_context(axis):
+            _, state, m = train_step(tree_map(view, silo_params), state,
+                                     tree_map(view, batch))
+        step_l[i] = state["step"]
+        ms.append(m)
+    pl = [Shard(0) if j == pos else Replicate()
+          for j in range(len(mesh.axis_names))]
+    d = silo_opt_state["step"].shape[0]
+    return silo_params, silo_opt_state, tree_map(
+        lambda a: DTensor.from_local(a, mesh.device_mesh, pl,
+                                     run_check=False, shape=(d,),
+                                     stride=(1,)), _stack(ms))
 
 
 def make_federated_local_phase_step(cfg: ModelConfig, tc: TrainConfig, *,
@@ -347,23 +472,52 @@ def make_fedavg_sync_step(tc: TrainConfig, *,
     def sync(silo_params, silo_opt_state):
         _check_stacked(silo_params)
         leaves = tree_leaves(silo_params)
-        mask = torch.ones((leaves[0].shape[0],), dtype=torch.float32,
-                          device=dev)
-        pieces = [c for a in leaves for c in _silo_columns(a)]
+        d = leaves[0].shape[0]
+        mask = torch.ones((d,), dtype=torch.float32,
+                          device=_local(leaves[0]).device)
+        gather = _silo_gather(leaves[0]) if _sharded(silo_params) else None
+        # the sharded sync reads each piece gathered over the silo axis and
+        # writes the result into this rank's own silos
+        pieces = [(c, gather(c) if gather else c)
+                  for a in leaves for c in _silo_columns(_local(a))]
         if fed.aggregator == "krum":
-            best = krum_pick(sum(krum_distances(c) for c in pieces), mask,
+            best = krum_pick(sum(krum_distances(f) for _, f in pieces), mask,
                              fed.krum_f)
-            for c in pieces:
-                c.copy_(c.index_select(0, best.reshape(1)))
+            for c, f in pieces:
+                c.copy_(f.index_select(0, best.reshape(1)))
         else:
-            for c in pieces:
-                c.copy_(aggregate(c, mask).to(c.dtype)[None])
+            for c, f in pieces:
+                c.copy_(aggregate(f, mask).to(c.dtype)[None])
         if fed.aggregator == "fedavg" or fed.aggregator in ROBUST_AGGREGATORS:
             for t in tree_leaves(silo_opt_state):
-                t.zero_()
+                _local(t).zero_()
         return silo_params, silo_opt_state
 
     return sync
+
+
+def _silo_gather(like: torch.Tensor) -> Callable:
+    """For a silo stack of DTensors like `like` (silo dim split over one
+    mesh axis): a function taking a (d_loc, n) piece of this rank's block
+    to the (d, n) piece of every silo of its row, gathered over the silo
+    axis in silo order, so the aggregate is computed from the same rows,
+    in the same order, as on one process."""
+    from torch.distributed import _functional_collectives as funcol
+
+    axes = [j for j, p in enumerate(like.placements) if p.is_shard(0)]
+    if len(axes) != 1:
+        raise ValueError(f"the silo dim must be split over one mesh axis: "
+                         f"{like.placements}")
+    group = (like.device_mesh, axes[0])
+
+    # (renamed in newer torch; the same collective)
+    all_gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+
+    def gather(piece: torch.Tensor) -> torch.Tensor:
+        return funcol.wait_tensor(all_gather(piece.contiguous(), 0, group))
+
+    return gather
 
 
 def make_federated_round_step(cfg: ModelConfig, tc: TrainConfig, *,

@@ -59,7 +59,7 @@ per slot, sees every update.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +68,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.shardingx.constrain import (as_dtensor, constrain,
+                                             fsdp_gather, is_dtensor)
+from repro_torch.shardingx.policy import contiguous_strides
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -182,11 +185,39 @@ def _init_tree(cfg: ModelConfig, generator: Optional[torch.Generator],
     return params
 
 
+def _served_layers(stacked: Params):
+    """`_layers` for the prefill and decode loops: sharded (DTensor)
+    layers gathered over the FSDP axes one at a time, as they run."""
+    layers = _layers(stacked)
+    if not is_dtensor(tree_leaves(stacked)[0]):
+        return layers
+    return (fsdp_gather(lp) for lp in layers)
+
+
+def _unbind_layers(a: torch.Tensor):
+    """``a.unbind(0)``; a DTensor (its layer dim never split) unbound on
+    its local block, each layer rewrapped with the other dims'
+    placements: DTensor's own unbind rule gathers a stack split over two
+    axes."""
+    if not is_dtensor(a):
+        return a.unbind(0)
+    from torch.distributed.tensor import DTensor, Shard
+
+    if any(p.is_shard(0) for p in a.placements):
+        raise ValueError(f"a layer stack split on its layer dim: "
+                         f"{a.placements}")
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in a.placements]
+    shape = tuple(a.shape[1:])
+    return [DTensor.from_local(t, a.device_mesh, pl, run_check=False,
+                               shape=shape, stride=contiguous_strides(shape))
+            for t in a.to_local().unbind(0)]
+
+
 def _layers(stacked: Params) -> List[Params]:
     """Every layer's params, views made by one ``unbind`` per tensor: its
     backward stacks the L layer gradients once, where L separate ``a[i]``
     would each add a zero-padded full-size gradient."""
-    unbound = [a.unbind(0) for a in tree_leaves(stacked)]
+    unbound = [_unbind_layers(a) for a in tree_leaves(stacked)]
 
     def layer(i):
         it = iter(u[i] for u in unbound)
@@ -207,13 +238,61 @@ def _local_flags(cfg: ModelConfig, n: int) -> List[bool]:
     return [False] * n
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``. On DTensors, each rank looks its tokens up in its
+    own block of the table (gathered over the FSDP axes): a vocabulary
+    split over "model" gives each rank the rows it holds, zeros
+    elsewhere, summed over "model" (the reference's GSPMD gather of a
+    vocab-split table); a split d gives the output split alike. DTensor's
+    own rule for the lookup's backward fails on some torch versions."""
+    if not is_dtensor(embed):
+        return embed[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.shardingx.constrain import lay_out
+
+    embed = fsdp_gather(embed)
+    mesh = embed.device_mesh
+    n = tokens.ndim
+    tpl, epl, opl, egrad = [], [], [], []
+    vocab_dims = []
+    for i, (tp, ep) in enumerate(zip(tokens.placements, embed.placements)):
+        batch = tp.is_shard() and not ep.is_shard()
+        tpl.append(tp if batch else Replicate())
+        epl.append(ep if ep.is_shard() else Replicate())
+        opl.append(Partial() if ep.is_shard(0) else Shard(n) if ep.is_shard(1)
+                   else tp if batch else Replicate())
+        egrad.append(Partial() if batch else epl[-1])
+        if ep.is_shard(0):
+            vocab_dims.append(i)
+
+    def fn(tok, emb):
+        if not vocab_dims:
+            return (emb[tok.long()],)
+        block = 0
+        for i in vocab_dims:
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        lo = block * emb.shape[0]
+        tok = tok.long() - lo
+        inside = (tok >= 0) & (tok < emb.shape[0])
+        rows = emb[torch.where(inside, tok, 0)]
+        return (rows * inside[..., None].to(rows.dtype),)
+
+    out = local_map(fn, out_placements=(tuple(opl),),
+                    in_placements=(tuple(tpl), tuple(epl)),
+                    in_grad_placements=(tuple(tpl), tuple(egrad)),
+                    device_mesh=mesh)(lay_out(tokens, tpl), lay_out(embed, epl))
+    return L._summed(out[0])
+
+
 def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                  prefix_embeds: Optional[torch.Tensor] = None):
     """-> (x (B, P+S, d), positions (B, P+S), loss_mask (B, P+S)), P = 0
     without a prefix front end (`prefix_embeds` is then ignored, as in the
     reference); with one, `prefix_embeds` (B, P, d) is required."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     loss_mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
@@ -229,7 +308,24 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     T = x.shape[1]
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device).expand(B, T)
+    if is_dtensor(tokens):
+        positions, loss_mask = (_rows_like(tokens, t)
+                                for t in (positions, loss_mask))
     return x, positions, loss_mask
+
+
+def _rows_like(tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A (B, T) tensor built whole and the same on every rank, as a
+    DTensor split over its rows as the DTensor `tokens` is (this rank's
+    rows only, no data moved); a sequence split is not expected."""
+    from torch.distributed.tensor import Replicate
+
+    if any(p.is_shard(1) for p in tokens.placements):
+        raise ValueError(f"tokens split over the sequence: "
+                         f"{tokens.placements}")
+    mesh = tokens.device_mesh
+    return as_dtensor(t, mesh).redistribute(
+        mesh, [p if p.is_shard(0) else Replicate() for p in tokens.placements])
 
 
 def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -238,6 +334,7 @@ def _dense_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """-> (x, aux) or, with return_kv, (x, aux, the cache entries: (k, v),
     or MLA's (ckv, krope)): aux is the MoE layer's load-balance loss, None
     for a dense layer."""
+    x = constrain(x, "batch", None, None)
     h = L.apply_rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
     if cfg.mla is not None:
         attn, kv = L.mla_attention(lp["attn"], h, cfg, positions=positions,
@@ -267,6 +364,7 @@ def _ffn(lp: Params, h: torch.Tensor, cfg: ModelConfig, moe_layer: bool):
 
 def _rwkv_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       use_kernels: bool):
+    x = constrain(x, "batch", None, None)
     h = L.apply_rmsnorm(lp["ln_att"], x, cfg.norm_eps)
     x = x + L.rwkv6_timemix(lp["tm"], h, cfg, use_kernels=use_kernels)
     h = L.apply_rmsnorm(lp["ln_ffn"], x, cfg.norm_eps)
@@ -275,15 +373,32 @@ def _rwkv_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _mamba_block_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    x = constrain(x, "batch", None, None)
     h = L.apply_rmsnorm(lp["ln"], x, cfg.norm_eps)
     return x + L.mamba2_forward(lp["mamba"], h, cfg)
 
 
+def _gathered(body, skip: Tuple[str, ...] = ()):
+    """`body` taking its layer's params gathered over the FSDP axes
+    (``shardingx.constrain.fsdp_gather``): inside ``checkpoint`` the
+    gather runs again in the backward, as FSDP re-gathers a layer."""
+    return lambda h, lp, flag: body(h, fsdp_gather(lp, skip, h.dtype), flag)
+
+
+def _fsdp_skip(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The expert-parallel MoE gathers its own experts (``moe_ep``)."""
+    return ("moe",) if cfg.moe is not None and cfg.moe.impl == "ep" else ()
+
+
 def _run_stack(body, x: torch.Tensor, stacked: Params, flags: List[bool],
-               remat: bool):
+               remat: bool, skip: Tuple[str, ...] = ()):
     """`body(x, layer_params, flag) -> (x, aux or None)` over the stacked
     layers, each under ``checkpoint`` with `remat` -> (x, the sum of the
-    layers' aux losses, fp32, 0 where none has one)."""
+    layers' aux losses, fp32, 0 where none has one). Sharded (DTensor)
+    layers are gathered over the FSDP axes inside `body`, except the
+    subtrees under the dict keys in `skip`."""
+    if is_dtensor(tree_leaves(stacked)[0]):
+        body = _gathered(body, skip)
     auxs = []
     for lp, flag in zip(_layers(stacked), flags):
         if remat:
@@ -333,7 +448,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                               _local_flags(cfg, cfg.first_k_dense), remat)
         n = _n_stacked(params["layers"])
         x, aux = _run_stack(body(cfg.family == "moe"), x, params["layers"],
-                            _local_flags(cfg, n), remat)
+                            _local_flags(cfg, n), remat, _fsdp_skip(cfg))
     hidden = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     logits = _lm_logits(params, hidden, cfg) if return_logits else None
     return logits, hidden, {"moe_aux": aux, "loss_mask": loss_mask}
@@ -348,9 +463,9 @@ def _hybrid_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     def round_body(h, round_blocks, flag):
         for lp in round_blocks:
-            h = _mamba_block_apply(lp, h, cfg)
-        h, _ = _dense_block_apply(params["shared_block"], h, cfg,
-                                  positions=positions, is_local=flag,
+            h = _mamba_block_apply(fsdp_gather(lp), h, cfg)
+        h, _ = _dense_block_apply(fsdp_gather(params["shared_block"]), h,
+                                  cfg, positions=positions, is_local=flag,
                                   use_kernels=use_kernels)
         return h
 
@@ -368,8 +483,22 @@ def _hybrid_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
-def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _lm_head(params: Params, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """The (d, V) head in `dtype`: the tied embedding's transpose or
+    ``lm_head``; sharded, cast on each rank's block and then gathered over
+    the FSDP axes (half the bytes moved for bf16)."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if is_dtensor(head):
+        head = fsdp_gather(head.to(dtype))
+    return head.T if cfg.tie_embeddings else head
+
+
+def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig,
+               head: Optional[torch.Tensor] = None):
+    """fp32 logits of `hidden`; `head` is ``_lm_head``'s, when a caller
+    takes several blocks' logits (one gather for all of them)."""
+    if head is None:
+        head = _lm_head(params, cfg, hidden.dtype)
     logits = (hidden @ head.to(hidden.dtype)).float()
     if cfg.final_logit_softcap:
         logits = (torch.tanh(logits / cfg.final_logit_softcap)
@@ -383,9 +512,24 @@ def _lm_logits(params: Params, hidden: torch.Tensor, cfg: ModelConfig):
 
 def _xent_sums(logits: torch.Tensor, labels: torch.Tensor,
                mask: torch.Tensor):
-    """(sum of masked next-token NLL, sum of the mask). logits fp32."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    """(sum of masked next-token NLL, sum of the mask). logits fp32.
+
+    The gold logit is a gather on a plain tensor. On a DTensor it is the
+    masked sum over the vocabulary (one nonzero term, so the same value):
+    DTensor's sharding rule for a gather along a vocabulary split over
+    ranks fails, while a masked sum is elementwise then a sum, which it
+    splits and reduces; log-sum-exp is taken from the max likewise."""
+    if is_dtensor(logits):
+        # log-sum-exp over a vocabulary split over ranks: the max and the
+        # sum of exponentials reduce as (B, S) partials, never the logits
+        top = logits.detach().amax(-1, keepdim=True)
+        logz = torch.log(torch.exp(logits - top).sum(-1)) + top[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(vocab == labels.long()[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
@@ -412,9 +556,12 @@ def chunked_xent(params: Params, hidden: torch.Tensor, labels: torch.Tensor,
     if S % chunk or S <= chunk:
         return softmax_xent(_lm_logits(params, hidden, cfg), labels, mask)
     tot = cnt = 0.0
+    head = _lm_head(params, cfg, hidden.dtype)
     for i in range(0, S, chunk):
-        t, c = _xent_sums(_lm_logits(params, hidden[:, i:i + chunk], cfg),
-                          labels[:, i:i + chunk], mask[:, i:i + chunk])
+        logits = constrain(_lm_logits(params, hidden[:, i:i + chunk], cfg,
+                                      head), "batch", None, "model")
+        t, c = _xent_sums(logits, labels[:, i:i + chunk],
+                          mask[:, i:i + chunk])
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -460,12 +607,13 @@ def _mtp_loss(params: Params, hidden: torch.Tensor, tokens: torch.Tensor,
     mp = params["mtp"]
     B, S, d = hidden.shape
     h = L.apply_rmsnorm(mp["ln_h"], hidden[:, :-1], cfg.norm_eps)
-    e = params["embed"][tokens[:, 1:].long()].to(h.dtype)
+    e = embed_lookup(params["embed"], tokens[:, 1:]).to(h.dtype)
     e = L.apply_rmsnorm(mp["ln_e"], e, cfg.norm_eps)
-    x = torch.cat([h, e], dim=-1) @ mp["proj"].to(h.dtype)
+    x = torch.cat([h, e], dim=-1) @ fsdp_gather(mp["proj"]).to(h.dtype)
     positions = torch.arange(S - 1, dtype=torch.int32,
                              device=x.device).expand(B, S - 1)
-    x, _ = _dense_block_apply(mp["block"], x, cfg, positions=positions,
+    x, _ = _dense_block_apply(fsdp_gather(mp["block"]), x, cfg,
+                              positions=positions,
                               is_local=False, use_kernels=False)
     x = L.apply_rmsnorm(params["ln_final"], x, cfg.norm_eps)
     mtp_labels = labels[:, 1:]          # the labels of t+2; the last is out
@@ -488,6 +636,12 @@ def _entry_names(cache: Params):
     return ("ckv", "krope") if "ckv" in cache else ("k", "v")
 
 
+def _row(positions: torch.Tensor) -> torch.Tensor:
+    """The first row of (B, T) positions, every row being 0..T-1: a plain
+    tensor (a DTensor's local first row, the same on every rank)."""
+    return (positions.to_local() if is_dtensor(positions) else positions)[0]
+
+
 def _fill_cache(cache: Params, layer: int, entries, positions: torch.Tensor
                 ) -> None:
     """Write one layer's per-position entries ((k, v) (B, S, KV, hd), or
@@ -500,7 +654,31 @@ def _fill_cache(cache: Params, layer: int, entries, positions: torch.Tensor
     W = min(S, C)
     slots = (positions[S - W:] % C).long()
     for name, ent in zip(_entry_names(cache), entries):
-        cache[name][layer][:, slots] = ent[:, S - W:].to(cache[name].dtype)
+        if is_dtensor(ent):
+            cache[name], ent = _sharded_entries(cache[name], ent)
+            cache[name].to_local()[layer][:, slots] = \
+                ent[:, S - W:].to(cache[name].dtype)
+        else:
+            cache[name][layer][:, slots] = \
+                ent[:, S - W:].to(cache[name].dtype)
+
+
+def _sharded_entries(leaf: torch.Tensor, ent: torch.Tensor):
+    """A cache leaf (L, B, C, ...) and one layer's DTensor entries (B, S,
+    ...) laid out alike: a plain leaf becomes a DTensor split as the
+    entries are (their S split, if any, dropped: C is never split), and
+    -> (the leaf, this rank's block of the entries on the leaf's
+    split)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = ent.device_mesh
+    if not is_dtensor(leaf):
+        pl = [Shard(p.dim + 1) if p.is_shard() and p.dim != 1
+              else Replicate() for p in ent.placements]
+        leaf = distribute_tensor(leaf, mesh, pl, src_data_rank=None)
+    epl = [Shard(p.dim - 1) if p.is_shard() else Replicate()
+           for p in leaf.placements]
+    return leaf, ent.redistribute(mesh, epl).to_local()
 
 
 def _entries_to_cache(cache: Params, positions: torch.Tensor) -> None:
@@ -551,11 +729,11 @@ def _prefill_attn_stack(stacked: Params, x: torch.Tensor, cfg: ModelConfig,
     layer of a new ring cache (KV, or MLA's latent) as it goes ->
     (x, cache)."""
     n = _n_stacked(stacked)
-    pos1d = positions[0]
+    pos1d = _row(positions)
     cache = _init_attn_cache(cfg, x.shape[0], cache_len, n, cache_dtype,
                              x.device)
     _entries_to_cache(cache, pos1d)
-    for i, (lp, flag) in enumerate(zip(_layers(stacked),
+    for i, (lp, flag) in enumerate(zip(_served_layers(stacked),
                                        _local_flags(cfg, n))):
         x, _, kv = _dense_block_apply(
             lp, x, cfg, positions=positions, is_local=flag,
@@ -574,7 +752,7 @@ def _prefill_rwkv(stacked: Params, x: torch.Tensor, cfg: ModelConfig):
     state (the chunked plain form) and its last normalized inputs, fp32:
     the decode state of init_decode_state."""
     wkv, xpa, xpf = [], [], []
-    for lp in _layers(stacked):
+    for lp in _served_layers(stacked):
         hn = L.apply_rmsnorm(lp["ln_att"], x, cfg.norm_eps)
         att, s = L.rwkv6_timemix(lp["tm"], hn, cfg, return_state=True)
         x = x + att
@@ -592,7 +770,7 @@ def _prefill_mamba(stacked: Params, x: torch.Tensor, cfg: ModelConfig):
     """Mamba2 blocks over the prompt -> (x, their decode state: the conv
     windows and SSM states, stacked)."""
     conv, ssm = [], []
-    for lp in _layers(stacked):
+    for lp in _served_layers(stacked):
         hn = L.apply_rmsnorm(lp["ln"], x, cfg.norm_eps)
         out, (cw, st) = L.mamba2_forward(lp["mamba"], hn, cfg,
                                          return_state=True)
@@ -610,7 +788,7 @@ def _prefill_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``shared_cache`` as it goes (the weights are shared, the keys are not);
     the trailing blocks' states go to ``mamba_tail``."""
     rounds = _hybrid_rounds(cfg)
-    pos1d = positions[0]
+    pos1d = _row(positions)
     cache = L.init_kv_cache(cfg, x.shape[0], cache_len, len(rounds),
                             cache_dtype, x.device)
     _entries_to_cache(cache, pos1d)
@@ -687,7 +865,7 @@ def decode_step(params: Params, state: Params, tokens: torch.Tensor,
     Returns (logits (B, 1, V) fp32, state). The state is updated in place,
     so the returned state is `state` itself (the reference returns an
     updated copy)."""
-    x = params["embed"][tokens[:, 0].long()][:, None]
+    x = embed_lookup(params["embed"], tokens[:, 0])[:, None]
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     x = x.to(compute_dtype)
@@ -713,7 +891,7 @@ def _decode_attn_stack(stacked: Params, cache: Params, x: torch.Tensor,
     place. A MoE layer routes the step's B tokens together: its capacity
     comes from B, as the reference's does."""
     n = _n_stacked(stacked)
-    for i, (lp, flag) in enumerate(zip(_layers(stacked),
+    for i, (lp, flag) in enumerate(zip(_served_layers(stacked),
                                        _local_flags(cfg, n))):
         x = _decode_attn_block(lp, cache, i, x, cur_pos, cfg, is_local=flag,
                                moe_layer=moe_layer)
@@ -751,7 +929,7 @@ def _decode_mamba_stack(stacked: Params, mstate: Params, x: torch.Tensor,
                         cfg: ModelConfig):
     """Mamba2 blocks on one token, writing each block's conv window and
     SSM state (layer i of `mstate`) in place."""
-    for i, lp in enumerate(_layers(stacked)):
+    for i, lp in enumerate(_served_layers(stacked)):
         hn = L.apply_rmsnorm(lp["ln"], x, cfg.norm_eps)
         out, conv, ssm = L.mamba2_decode_step(
             lp["mamba"], hn, cfg, conv_state=mstate["conv"][i],
@@ -782,7 +960,7 @@ def _decode_hybrid(params: Params, state: Params, x: torch.Tensor,
 def _decode_rwkv_stack(stacked: Params, state: Params, x: torch.Tensor,
                        cfg: ModelConfig):
     """rwkv6's layers on one token, writing each layer's state in place."""
-    for i, lp in enumerate(_layers(stacked)):
+    for i, lp in enumerate(_served_layers(stacked)):
         x, wkv, xpa, xpf = L.rwkv6_decode_step(
             lp["tm"], lp["cm"], x, cfg, state=state["wkv"][i],
             x_prev_att=state["x_prev_att"][i],

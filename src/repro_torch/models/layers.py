@@ -14,8 +14,11 @@ Functional style, as the reference: ``init_*`` builds a dict of tensors,
 ``wo`` (H, hd, d), ...), so weights carry over without transposes. An
 ``init_*`` takes ``lead``, the shape of leading stack axes (the backbone
 stacks layers on axis 0). The reference's sharding hints (``constrain``)
-have no counterpart on one card, and its scan/unroll helpers none in eager
-torch: layers loop in Python, so each layer's local/global flag is a
+stand at their counterparts: on DTensors under a mesh
+(``launch.mesh.use_mesh``) they redistribute as the reference's
+``with_sharding_constraint`` lays out, and any plain tensor (every one-card
+path) passes through them unchanged. Its scan/unroll helpers have none in
+eager torch: layers loop in Python, so each layer's local/global flag is a
 concrete bool.
 
 Dtype convention: params live in ``param_dtype``; activations are computed
@@ -33,6 +36,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.kernels.rwkv6 import ref as rwkv_ref
+from repro_torch.shardingx.constrain import (as_dtensor, constrain,
+                                             is_dtensor, lay_out)
 
 Params = Dict[str, Any]
 Shape = Tuple[int, ...]
@@ -126,13 +131,83 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 def _heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, nh, hd = w.shape
+    if is_dtensor(w):
+        return _tp_heads(x, w, into=True)
     return (x @ w.to(x.dtype).reshape(d, nh * hd)).unflatten(-1, (nh, hd))
 
 
 def _heads_out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     nh, hd, d = w.shape
+    if is_dtensor(w):
+        return _tp_heads(ctx, w, into=False)
     return ctx.flatten(-2) @ w.to(ctx.dtype).reshape(nh * hd, d)
+
+
+def _tp_heads(x: torch.Tensor, w: torch.Tensor, *, into: bool):
+    """`_heads_in` (`into`) or `_heads_out` on DTensors, each rank's
+    product on its own blocks: the weight whole over the batch axes (its
+    gradient partial there) and split over "model" as it is, on heads or
+    the head dim; x split over its batch axes as it comes. Into heads, x
+    is whole over "model" and the output split where the weight is (its
+    gradient partial over "model"); out of heads, x is split over "model"
+    as the weight and the output is a partial sum over "model". DTensor's
+    view rules cannot merge a split head dim with the heads and take it
+    back apart in the backward, which these products' reshapes need."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    lead = x.ndim - (1 if into else 2)       # the batch-like dims of x
+    xpl, wpl, opl, xg, wg = [], [], [], [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        split = wp.is_shard() and (wp.dim >= 1 if into else wp.dim <= 1)
+        batch = xp.is_shard() and xp.dim < lead and not split
+        wpl.append(Shard(wp.dim) if split else Replicate())
+        wg.append(Partial() if batch else wpl[-1])
+        if into:
+            xpl.append(Shard(xp.dim) if batch else Replicate())
+            opl.append(Shard(lead + wp.dim - 1) if split else xpl[-1])
+            xg.append(Partial() if split else xpl[-1])
+        else:
+            xpl.append(Shard(lead + wp.dim) if split else
+                       Shard(xp.dim) if batch else Replicate())
+            opl.append(Partial() if split else xpl[-1])
+            xg.append(xpl[-1])
+
+    def fn(xl, wl):
+        wl = wl.to(xl.dtype)
+        if into:
+            return ((xl @ wl.reshape(wl.shape[0], -1)).unflatten(
+                -1, wl.shape[1:]),)
+        return (xl.flatten(-2) @ wl.reshape(-1, wl.shape[-1]),)
+
+    out = local_map(fn, out_placements=(tuple(opl),),
+                    in_placements=(tuple(xpl), tuple(wpl)),
+                    in_grad_placements=(tuple(xg), tuple(wg)),
+                    device_mesh=mesh)(
+        lay_out(x, xpl), lay_out(w, wpl, reduce_grad=False))[0]
+    return _summed(out)
+
+
+def _summed(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with partial sums reduced (its gradient comes back whole
+    over those axes, the layout a partial output's gradient needs)."""
+    from torch.distributed.tensor import Replicate
+
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+def _proj_in(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` for eq "...d,dhk->...hk": the einsum on plain
+    tensors, `_heads_in` on a DTensor `w` (the einsum's flattening of
+    (h, k) is the merge DTensor's view rules cannot undo)."""
+    if is_dtensor(w):
+        return _heads_in(x, w)
+    return torch.einsum(eq, x, w)
 
 
 def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
@@ -158,6 +233,7 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
     q = _heads_in(x, p["wq"])
     k = _heads_in(x, p["wk"])
     v = _heads_in(x, p["wv"])
+    q = constrain(q, "batch", None, "model", None)
     if cfg.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -223,19 +299,82 @@ def sdpa(q, k, v, *, q_pos, k_pos, is_local, window, softcap) -> torch.Tensor:
 def sdpa_reference(q, k, v, *, q_pos, k_pos, is_local, window,
                    softcap) -> torch.Tensor:
     """Masked GQA attention, fp32 softmax. q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd).
-    KV heads are expanded to the full H (head h reads kv head h // G)."""
+    KV heads are expanded to the full H (head h reads kv head h // G); on
+    DTensors each rank expands its own heads' kv heads (`_local_attention`)."""
+    kw = dict(is_local=is_local, window=window, softcap=softcap)
+    if is_dtensor(q):
+        k = constrain(k, "batch", None, "model", None)
+        v = constrain(v, "batch", None, "model", None)
+        ctx = _local_attention(q, k, v, q_pos, k_pos, **kw)
+    else:
+        G = q.shape[2] // k.shape[2]
+        if G > 1:
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
+        ctx = _attend(q, k, v, q_pos, k_pos, **kw)
+    return constrain(ctx, "batch", None, "model", None)
+
+
+def _attend(q, k, v, q_pos, k_pos, *, is_local, window, softcap):
+    """The masked attention of `sdpa_reference` after the kv expansion."""
     hd = q.shape[-1]
-    G = q.shape[2] // k.shape[2]
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
     logits = torch.einsum("bqhk,bshk->bhqs", q, k).float()
+    logits = constrain(logits, "batch", "model", None, None)
     logits = logits / math.sqrt(hd)
     logits = _softcap(logits, softcap)
     mask = attention_mask(q_pos, k_pos, is_local=is_local, window=window)
     logits = torch.where(mask[:, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
+
+
+def _local_attention(q, k, v, q_pos, k_pos, **kw):
+    """`sdpa_reference` on DTensors: each rank attends over its own batch
+    rows and heads (q split on B and H, whole over the sequence and head
+    dim; k and v split alike on B, and on their kv heads where those
+    divide, else whole there), with no collective inside: the layout the
+    reference's constraints give its k, v and logits. A rank expands the
+    kv heads its q heads read; where kv heads are whole on each rank,
+    their gradient is the sum of the ranks' (Partial). DTensor's view
+    rules would flatten split dims in the einsums and the expansion's
+    backward, which some torch versions refuse."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qpl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+                for p in q.placements)
+    kvpl = tuple(Shard(2) if p.is_shard(2) and KV % mesh.size(i) == 0
+                 else Replicate() if p.is_shard(2) else p
+                 for i, p in enumerate(qpl))
+    kvgrad = tuple(Partial() if p.is_shard(2) and not kp.is_shard(2)
+                   else kp for p, kp in zip(qpl, kvpl))
+    ppl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in qpl)
+    head_dims = [i for i, p in enumerate(qpl) if p.is_shard(2)]
+
+    def fn(ql, kl, vl, qp, kp):
+        h_loc = ql.shape[2]
+        if kl.shape[2] != h_loc:
+            # this rank's q heads h (global) read kv head h // (H // KV)
+            first = 0
+            for i in head_dims:
+                first = first * mesh.size(i) + mesh.get_local_rank(i)
+            first *= h_loc
+            kv_first = 0 if kl.shape[2] == KV else first // (H // KV)
+            idx = (first + torch.arange(h_loc, device=kl.device)) \
+                // (H // KV) - kv_first
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return (_attend(ql, kl, vl, qp, kp, **kw),)
+
+    out = local_map(fn, out_placements=(qpl,),
+                    in_placements=(qpl, kvpl, kvpl, ppl, ppl),
+                    in_grad_placements=(qpl, kvgrad, kvgrad, ppl, ppl),
+                    device_mesh=mesh)(
+        lay_out(q, qpl), lay_out(k, kvpl), lay_out(v, kvpl),
+        lay_out(as_dtensor(q_pos, mesh), ppl),
+        lay_out(as_dtensor(k_pos, mesh), ppl))
+    return out[0]
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
@@ -306,6 +445,9 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q_eff = torch.cat([q_nope, q_rope], dim=-1)
     k_eff = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
                       dim=-1)
+    q_eff = constrain(q_eff, "batch", None, "model", None)
+    k_eff = constrain(k_eff, "batch", None, "model", None)
+    v = constrain(v, "batch", None, "model", None)
     ctx = sdpa(q_eff, k_eff, v, q_pos=positions, k_pos=positions,
                is_local=is_local, window=cfg.sliding_window, softcap=0.0)
     out = _heads_out(ctx, p["wo"])
@@ -317,6 +459,52 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 # Attention — single-token decode against a ring-buffer KV cache
 # --------------------------------------------------------------------------
+
+def ring_write(cache: torch.Tensor, slot: torch.Tensor,
+               value: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = value[b]`` for every row b, in place: cache
+    (B, C, ...), slot (B,), value (B, ...). On a DTensor cache each rank
+    writes its own block: the value and slots laid out as the cache
+    first; where C is split over ranks (the long-context layout), a rank
+    writes the rows whose slot falls in its part of C and keeps the
+    others."""
+    if not is_dtensor(cache):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, slot] = value.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    vpl, spl, c_dims = [], [], []
+    for i, p in enumerate(cache.placements):
+        if p.is_partial():
+            raise ValueError(f"a ring cache of partial sums "
+                             f"{cache.placements} takes no row write")
+        if p.is_shard(1):
+            c_dims.append(i)
+        vpl.append(Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+                   else Shard(0) if p.is_shard(0) else Replicate())
+        spl.append(p if p.is_shard(0) else Replicate())
+
+    def laid(t, pl):
+        return as_dtensor(t, mesh).redistribute(mesh, pl).to_local()
+
+    c = cache.to_local()
+    s_l, v_l = laid(slot, spl), laid(value, vpl).to(c.dtype)
+    bidx = torch.arange(c.shape[0], device=c.device)
+    if not c_dims:
+        c[bidx, s_l] = v_l
+        return
+    block = 0
+    for i in c_dims:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    local = s_l - block * c.shape[1]
+    mine = (local >= 0) & (local < c.shape[1])
+    local = torch.where(mine, local, 0)
+    keep = c[bidx, local]
+    mine = mine.reshape(mine.shape + (1,) * (v_l.ndim - 1))
+    c[bidx, local] = torch.where(mine, v_l, keep)
+
 
 def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   num_layers: int, dtype, device) -> Params:
@@ -350,24 +538,89 @@ def decode_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _qkv(p, x, cfg, cur_pos[:, None])
 
     slot = (cur_pos % C).long()                                 # (B,)
-    bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
-    cache_pos[bidx, slot] = cur_pos.to(cache_pos.dtype)
+    ring_write(cache_k, slot, k[:, 0])
+    ring_write(cache_v, slot, v[:, 0])
+    ring_write(cache_pos, slot, cur_pos)
 
     G = H // KV
     valid = (cache_pos >= 0) & (cache_pos <= cur_pos[:, None])    # (B, C)
     if is_local:
         valid = valid & (cache_pos > cur_pos[:, None] - cfg.sliding_window)
-    qg = q.reshape(B, KV, G, hd)                                  # Sq==1
+    if is_dtensor(cache_k):
+        return _heads_out(_local_decode(q, cache_k, cache_v, valid, cfg),
+                          p["wo"])
+    qg = constrain(q.reshape(B, KV, G, hd), "batch", "model", None, None)
     kc = cache_k.to(q.dtype).permute(0, 2, 3, 1)                  # (B,KV,hd,C)
-    logits = torch.matmul(qg, kc).float()                         # (B,KV,G,C)
+    logits = constrain(torch.matmul(qg, kc).float(),              # (B,KV,G,C)
+                       "batch", "model", None, None)
     logits = _softcap(logits / math.sqrt(hd), cfg.attn_logit_softcap)
     logits = torch.where(valid[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     vc = cache_v.to(q.dtype).permute(0, 2, 1, 3)                  # (B,KV,C,hd)
     ctx = torch.matmul(probs, vc).reshape(B, 1, H, hd)
     return _heads_out(ctx, p["wo"])
+
+
+def _local_decode(q, cache_k, cache_v, valid, cfg: ModelConfig):
+    """The grouped decode attention of `decode_attention` on DTensors, each
+    rank on its own blocks in the cache's layout (the layout the
+    reference's decode constraints give): batch rows split as the cache's;
+    over "model", kv heads split (q's heads alike: each rank's q heads read
+    its kv heads) or the head dim split (q alike; the logits summed over
+    those ranks before the softmax), else whole; a cache split over its
+    length C (the long-context layout) is attended in parts, the softmax's
+    max and sum and the context reduced over those ranks. -> ctx (B, 1,
+    H, hd), split as q was laid."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache_k.device_mesh
+    qpl, vpl, sums, parts = [], [], [], []
+    for i, p in enumerate(cache_k.placements):
+        if p.is_partial():
+            raise ValueError(f"a decode cache of partial sums "
+                             f"{cache_k.placements}")
+        qpl.append(Shard(p.dim) if p.is_shard() and p.dim != 1
+                   else Replicate())
+        vpl.append(Shard(p.dim) if p.is_shard() and p.dim <= 1
+                   else Replicate())
+        if p.is_shard(3):
+            sums.append(i)
+        if p.is_shard(1):
+            parts.append(i)
+
+    def reduce(t, op, dims):
+        for i in dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+        return t
+    hd = cfg.head_dim
+
+    def fn(ql, kl, vl, ok):
+        B, _, H, d = ql.shape
+        KV = kl.shape[2]
+        qg = ql.reshape(B, KV, H // KV, d)
+        logits = torch.matmul(qg, kl.to(ql.dtype).permute(0, 2, 3, 1)).float()
+        # a split head dim: partial dot products
+        logits = reduce(logits, "sum", sums)
+        logits = _softcap(logits / math.sqrt(hd), cfg.attn_logit_softcap)
+        logits = torch.where(ok[:, None, None], logits, NEG_INF)
+        vc = vl.to(ql.dtype).permute(0, 2, 1, 3)
+        if not parts:
+            probs = torch.softmax(logits, dim=-1).to(ql.dtype)
+            return (torch.matmul(probs, vc).reshape(B, 1, H, d),)
+        # C in parts: the softmax over every part, then the parts' sum
+        top = reduce(logits.amax(-1, keepdim=True), "max", parts)
+        e = torch.exp(logits - top)
+        probs = (e / reduce(e.sum(-1, keepdim=True), "sum", parts))
+        ctx = reduce(torch.matmul(probs.to(ql.dtype), vc), "sum", parts)
+        return (ctx.reshape(B, 1, H, d),)
+
+    qpl, vpl = tuple(qpl), tuple(vpl)
+    cpl = tuple(cache_k.placements)
+    return local_map(fn, out_placements=(qpl,),
+                     in_placements=(qpl, cpl, cpl, vpl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, cache_k, cache_v, valid)[0]
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -408,10 +661,9 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     k_rope = apply_rope(k_rope[:, None, :], sin, cos)[:, 0]
 
     slot = (cur_pos % C).long()
-    bidx = torch.arange(B, device=x.device)
-    cache_ckv[bidx, slot] = ckv.to(cache_ckv.dtype)
-    cache_krope[bidx, slot] = k_rope.to(cache_krope.dtype)
-    cache_pos[bidx, slot] = cur_pos.to(cache_pos.dtype)
+    ring_write(cache_ckv, slot, ckv)
+    ring_write(cache_krope, slot, k_rope)
+    ring_write(cache_pos, slot, cur_pos)
 
     # absorb: q_eff[b,h,r] = sum_k q_nope[b,h,k] * w_uk[r,h,k]
     q_eff = torch.einsum("bhk,rhk->bhr", q_nope, p["w_uk"].to(x.dtype))
@@ -444,9 +696,53 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, device,
 
 
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(x):
+        return _tp_mlp(p, x)
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+def _tp_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """`apply_mlp` on DTensors as tensor parallelism over "model": x whole
+    over "model" and split over its batch axes as it comes, the up
+    projections split on f and the down projection on its f rows where f
+    divides, so each rank's SwiGLU is local and the output a partial sum
+    over "model"; the weights whole over the batch axes (their gradients
+    partial there). DTensor's per-op rules, left alone, replicate the
+    backward's products over "model"."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    f = p["w_gate"].shape[-1]
+    xpl, upl, dpl, opl, xg, wg = [], [], [], [], [], []
+    for i, n in enumerate(names):
+        tp = n == "model" and f % mesh.size(i) == 0 and mesh.size(i) > 1
+        batch = x.placements[i].is_shard(0) and n != "model"
+        xpl.append(Shard(0) if batch else Replicate())
+        upl.append(Shard(1) if tp else Replicate())
+        dpl.append(Shard(0) if tp else Replicate())
+        opl.append(Shard(0) if batch else Partial() if tp else Replicate())
+        xg.append(Shard(0) if batch else Partial() if tp else Replicate())
+        wg.append(Partial() if batch else None)
+
+    def grads(pl):
+        return tuple(g or q for g, q in zip(wg, pl))
+
+    def fn(xl, wgl, wul, wdl):
+        g = xl @ wgl.to(xl.dtype)
+        u = xl @ wul.to(xl.dtype)
+        return ((F.silu(g) * u) @ wdl.to(xl.dtype),)
+
+    xpl, upl, dpl, opl = map(tuple, (xpl, upl, dpl, opl))
+    ws = [lay_out(p[k], pl, reduce_grad=False)
+          for k, pl in (("w_gate", upl), ("w_up", upl), ("w_down", dpl))]
+    return _summed(local_map(
+        fn, out_placements=(opl,), in_placements=(xpl, upl, upl, dpl),
+        in_grad_placements=(tuple(xg), grads(upl), grads(upl), grads(dpl)),
+        device_mesh=mesh)(lay_out(x, xpl), *ws)[0])
 
 
 # --------------------------------------------------------------------------
@@ -576,9 +872,11 @@ def moe_experts(p: Params, rows: torch.Tensor, lo: int = 0) -> torch.Tensor:
     n = rows.shape[0]
     w = {k: p[k] if n == p[k].shape[0] else p[k][lo:lo + n]
          for k in ("w_gate", "w_up", "w_down")}
-    g = torch.bmm(rows, w["w_gate"].to(rows.dtype))
+    g = constrain(torch.bmm(rows, w["w_gate"].to(rows.dtype)),
+                  "model", None, None)
     u = torch.bmm(rows, w["w_up"].to(rows.dtype))
-    return torch.bmm(F.silu(g) * u, w["w_down"].to(rows.dtype))
+    return constrain(torch.bmm(F.silu(g) * u, w["w_down"].to(rows.dtype)),
+                     "model", None, None)
 
 
 def moe_combine(y: torch.Tensor, dispatch, gates: torch.Tensor,
@@ -592,8 +890,8 @@ def moe_combine(y: torch.Tensor, dispatch, gates: torch.Tensor,
     E, cap, d = y.shape
     T, k = gates.shape
     y_pad = torch.cat([y, y.new_zeros((E, 1, d))], dim=1)
-    back = y_pad.reshape(E * (cap + 1), d).index_select(
-        0, flat_e * (cap + 1) + slot)                          # (T·k, d)
+    back = constrain(y_pad.reshape(E * (cap + 1), d).index_select(
+        0, flat_e * (cap + 1) + slot), "batch", None)          # (T·k, d)
     w = (gates.reshape(-1) * keep.float()).to(y.dtype)
     return torch.sum((back * w[:, None]).reshape(T, k, d),
                      dim=1).reshape(shape)
@@ -614,9 +912,38 @@ def apply_moe_gspmd(p: Params, x: torch.Tensor, cfg: ModelConfig):
     experts as batched matmuls over E, `moe_combine`): the capacity comes
     from this call's own tokens, so a decode step's output depends on its
     batch-mates, and tokens over capacity are dropped."""
+    if is_dtensor(x):
+        return _replicated_moe(p, x, cfg)
     buf, dispatch, gates, aux = moe_pack(p, x, cfg)
+    buf = constrain(buf, "model", None, None)                  # expert parallel
     out = moe_combine(moe_experts(p, buf), dispatch, gates, x.shape)
     return moe_shared(p, x, cfg, out), aux
+
+
+def _replicated_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """`apply_moe_gspmd` on DTensors: every rank routes and runs the whole
+    layer on every token (x and the weights gathered whole), the
+    replication the reference's GSPMD partitioner gives this dispatch
+    (its sort, searchsorted and scatter over all tokens have no split
+    rule; ``moe_ep`` is the expert-parallel layout). The gradients are
+    whole on every rank."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = x.device_mesh
+    whole = tuple(Replicate() for _ in range(mesh.ndim))
+    leaves = tree_leaves(p)
+
+    def fn(xl, *ws):
+        it = iter(ws)
+        return apply_moe_gspmd(tree_map(lambda _: next(it), p), xl, cfg)
+
+    return local_map(fn, out_placements=(whole, whole),
+                     in_placements=(whole,) * (1 + len(leaves)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, *leaves)
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -684,18 +1011,24 @@ def _rwkv6_rkvwg(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
     dtype, as the reference's mixed-dtype einsums promote."""
     dt = x.dtype
     # ddlerp: mix_i = x + (shifted - x) * (base_i + lora_i(x))
-    lora_in = torch.einsum("...d,dml->...ml", x, p["mix_lora_a"].to(dt))
+    lora_in = _proj_in("...d,dml->...ml", x, p["mix_lora_a"].to(dt))
     lora = torch.einsum("...ml,mld->...md", torch.tanh(lora_in),
                         p["mix_lora_b"].to(dt))
     mixes = x[..., None, :] + (x_prev - x)[..., None, :] * (
         p["mix_base"].to(dt) + lora)                             # (..., 5, d)
+    mixes = constrain(mixes, *(["batch"] + [None] * (mixes.ndim - 2)
+                               + ["model"]))
     w = lambda name: p[name].to(dt).to(mixes.dtype)
-    xr, xk, xv, xw, xg = mixes.unbind(-2)
+    parts = mixes.unbind(-2)
+    if is_dtensor(mixes):
+        # the five gradients stacked back in one layout
+        parts = [lay_out(m, m.placements) for m in parts]
+    xr, xk, xv, xw, xg = parts
     r = _heads_in(xr, w("w_r"))
     k = _heads_in(xk, w("w_k"))
     v = _heads_in(xv, w("w_v"))
     dl = xw @ w("decay_lora_a")
-    dw = torch.einsum("...l,lhk->...hk", torch.tanh(dl), w("decay_lora_b"))
+    dw = _proj_in("...l,lhk->...hk", torch.tanh(dl), w("decay_lora_b"))
     # Clip so per-step log-decay >= -e^1.6 ~= -4.95: keeps the chunked
     # factored form (k * exp(-cumdecay)) inside fp32 range for chunk<=16
     # (see kernels/rwkv6/ref.py stability note).
@@ -717,7 +1050,9 @@ def rwkv6_timemix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     H, hd = cfg.num_heads, cfg.ssm.head_dim
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, log_w, g = _rwkv6_rkvwg(p, x, x_prev, cfg)
-    if use_kernels and not return_state:
+    if is_dtensor(r):
+        o, state = _local_wkv(r, k, v, log_w, p["bonus"], cfg, return_state)
+    elif use_kernels and not return_state:
         o = rwkv_ops.wkv6(r, k, v, log_w, p["bonus"], chunk=cfg.ssm.chunk)
         state = None
     else:
@@ -732,6 +1067,44 @@ def rwkv6_timemix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if return_state:
         return out, state
     return out
+
+
+def _local_wkv(r, k, v, log_w, u, cfg: ModelConfig, return_state: bool):
+    """The chunked WKV6 form on DTensors, each rank on its own batch rows
+    and, where the heads divide over "model", its own heads (the
+    recurrence is independent per (batch, head)); a head dim split over
+    "model" (rwkv6-3b's 40 heads on 16 ranks) is gathered and the heads
+    run whole on those ranks, as a recurrence over a split K cannot. ->
+    (o (B, S, H, V), the final state (B, H, K, V) or None)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = r.device_mesh
+    H = r.shape[2]
+    pl, upl, ug, spl = [], [], [], []
+    for i, p in enumerate(r.placements):
+        heads = p.is_shard(2) and H % mesh.size(i) == 0
+        batch = p.is_shard(0)
+        pl.append(Shard(0) if batch else Shard(2) if heads else Replicate())
+        upl.append(Shard(0) if heads else Replicate())
+        ug.append(Partial() if batch else upl[-1])
+        spl.append(Shard(0) if batch else Shard(1) if heads else Replicate())
+    pl, upl, ug, spl = map(tuple, (pl, upl, ug, spl))
+
+    def fn(rl, kl, vl, wl, ul):
+        res = rwkv_ref.wkv6_chunked(rl, kl, vl, wl, ul, chunk=cfg.ssm.chunk,
+                                    return_state=return_state,
+                                    shard=cfg.ssm.shard)
+        return tuple(res) if return_state else (res,)
+
+    outs = (pl, spl) if return_state else (pl,)
+    got = local_map(fn, out_placements=outs,
+                    in_placements=(pl, pl, pl, pl, upl),
+                    in_grad_placements=(pl, pl, pl, pl, ug),
+                    device_mesh=mesh)(
+        *(lay_out(t, pl) for t in (r, k, v, log_w)),
+        lay_out(u, upl, reduce_grad=False))
+    return got[0], (got[1] if return_state else None)
 
 
 def init_rwkv6_channelmix(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -909,9 +1282,10 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     also returns (conv_window (B, K-1, C) fp32, ssm_state (B, H, N, P))."""
     B, S, _ = x.shape
     inner, H, N, P, _ = _mamba2_dims(cfg)
-    proj = x @ p["w_in"].to(x.dtype)
+    proj = constrain(x @ p["w_in"].to(x.dtype), "batch", None, "model")
     z, xin, Bc, Cc, dt = torch.split(proj, [inner, inner, N, N, H], dim=-1)
-    conv_raw = torch.cat([xin, Bc, Cc], dim=-1)
+    conv_raw = constrain(torch.cat([xin, Bc, Cc], dim=-1),
+                         "batch", None, "model")
     conv_in = F.silu(_causal_conv1d(conv_raw, p["conv_w"].to(x.dtype),
                                     p["conv_b"].to(x.dtype)))
     xin, Bc, Cc = torch.split(conv_in, [inner, N, N], dim=-1)
@@ -957,8 +1331,9 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Cc = F.pad(Cc, (0, 0, 0, pad))
     S = S0 + pad
     nc = S // L
-    xb = xh.reshape(B, nc, L, H, P).float()
-    dtb = dt.reshape(B, nc, L, H)
+    xb = constrain(xh.reshape(B, nc, L, H, P).float(),
+                   "batch", None, None, "model", None)
+    dtb = constrain(dt.reshape(B, nc, L, H), "batch", None, None, "model")
     Bb = Bc.reshape(B, nc, L, N).float()
     Cb = Cc.reshape(B, nc, L, N).float()
 

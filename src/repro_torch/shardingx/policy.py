@@ -21,7 +21,11 @@ and normalises its entries as that does. A mesh is anything with
 ``axis_names`` and ``devices.shape`` (``launch.mesh.HostMesh``, the
 one-card planning mesh, a test's stand-in). In place of the reference's
 ``to_shardings`` (NamedSharding trees), `shard_shape` gives a spec's local
-block and `to_placements` its ``torch.distributed.tensor`` placements.
+block and `to_placements` its ``torch.distributed.tensor`` placements; in
+place of its ``device_put`` of a tree on those shardings,
+`distribute_tree` lays a tree of whole tensors out as DTensors over a
+``launch.mesh.HostMesh`` of running ranks, and `local_tree` gives each
+leaf's local shard back.
 """
 from __future__ import annotations
 
@@ -296,3 +300,43 @@ def to_placements(spec_tree: Any, mesh) -> Any:
         return tuple(out)
 
     return map_specs(one, spec_tree)
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape` (what
+    ``DTensor.from_local`` takes with a global shape)."""
+    out, acc = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= s
+    return tuple(reversed(out))
+
+
+def distribute_tree(tree: Any, spec_tree: Any, mesh) -> Any:
+    """Each tensor of `tree` as a ``DTensor`` on ``mesh.device_mesh``, laid
+    out by its `P` of `spec_tree` (``to_placements``: an all-None spec is
+    ``Replicate()`` on every axis). Every rank passes the same whole
+    tensors and keeps its own block of each: no data moves. A leaf that
+    is a DTensor already is redistributed to the spec."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.tree import tree_map
+
+    dm = mesh.device_mesh
+
+    def one(t, spec: P):
+        pl = to_placements(spec, mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(dm, pl)
+        return distribute_tensor(t, dm, pl, src_data_rank=None)
+
+    return tree_map(one, tree, spec_tree)
+
+
+def local_tree(tree: Any) -> Any:
+    """Each DTensor leaf of `tree` as this rank's local block (the tensor
+    the DTensor holds, not a copy); other leaves as they are."""
+    from repro_torch.shardingx.constrain import is_dtensor
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to_local() if is_dtensor(t) else t, tree)
