@@ -380,6 +380,10 @@ SLLM_RANKS, SLLM_MESH = 4, (2, 2)
 SLLM_CHECK, SLLM_TRAIN, SLLM_STEPS = (2, 512), (4, 2048), 3
 SLLM_EP, SLLM_EP_REPEATS = (4, 2048), 3
 SLLM_LOSS_TOL, SLLM_GRAD_TOL = 1e-5, 1e-4
+# the checked fp32 train step: a first update that shows (lr 1e-3 at once),
+# params after it within 1e-4 relative Frobenius of the unsharded step's
+SLLM_CHECK_TC = {"learning_rate": 1e-3, "warmup_steps": 1}
+SLLM_STEP_TOL = 1e-4
 # steps of the new decode rows' profiled runs and captured-vs-eager gap: the
 # profiler's post-processing grows with the kernels it saw (rwkv6-3b runs
 # ~2,800 a step)
@@ -3818,7 +3822,7 @@ def phase_moe_ep(dev, smi):
           f"moe_ep out {out_gap} / aux {aux_gap} vs the emulation")
     check(max(grad_gaps.values()) <= EP_TOL,
           f"moe_ep summed gradients vs the emulation's: {grad_gaps}")
-    check(all(r["stats"]["calls"]["all-to-all"] == 4 for r in res),
+    check(all(r["stats"]["calls"]["all_to_all"] == 4 for r in res),
           f"moe_ep exchanges: {[r['stats'] for r in res]}")
     return row
 
@@ -3829,22 +3833,28 @@ def phase_sharded_llm(dev, smi):
     timed train steps and granite's EP layer, one group of SLLM_RANKS
     ranks."""
     t_phase = time.perf_counter()
-    def probe_one(name):
+    def probe_group(names):
         try:
-            got = run_ranks(llm_ranks.gloo_probe, 2, args=(name,),
+            got = run_ranks(llm_ranks.gloo_probe, 2, args=(names,),
                             device=dev.type, backend="gloo", timeout=120)
-            return got[0] if got[0] == got[1] else got
+            return got[0] if got[0] == got[1] else {n: got for n in names}
         except (RankError, TimeoutError) as e:
-            return f"{type(e).__name__}: {str(e).splitlines()[-1]}"
+            return {n: f"{type(e).__name__}: {str(e).splitlines()[-1]}"
+                    for n in names}
 
-    # one group a collective (a crash in gloo ends its group), all at once
-    with ThreadPoolExecutor(len(llm_ranks.PROBED)) as pool:
-        probe = dict(zip(llm_ranks.PROBED,
-                         pool.map(probe_one, llm_ranks.PROBED)))
+    # gloo's CUDA all_gather_into_tensor ends its process (torch 2.11):
+    # it runs in a group of its own, beside one group for the others
+    alone = ("all_gather_into_tensor",)
+    groups = [alone, tuple(n for n in llm_ranks.PROBED if n not in alone)]
+    with ThreadPoolExecutor(len(groups)) as pool:
+        got = {k: v for g in pool.map(probe_group, groups)
+               for k, v in g.items()}
+    probe = {n: got[n] for n in llm_ranks.PROBED}
     emit({"phase": "sharded_llm.gloo_probe", "cuda_tensors_on_gloo": probe,
           "probe_s": time.perf_counter() - t_phase, "device": smi})
     torch.cuda.empty_cache()
-    spec = {"mesh": SLLM_MESH, "check": SLLM_CHECK, "train": SLLM_TRAIN,
+    spec = {"mesh": SLLM_MESH, "check": SLLM_CHECK,
+            "check_tc": SLLM_CHECK_TC, "train": SLLM_TRAIN,
             "steps": SLLM_STEPS, "compute_dtype": "bfloat16",
             "ep": SLLM_EP, "ep_repeats": SLLM_EP_REPEATS}
     t0 = time.perf_counter()
@@ -3860,6 +3870,10 @@ def phase_sharded_llm(dev, smi):
            "loss_sharded": r0["loss_sharded"], "loss_gap": r0["loss_gap"],
            "grad_gap": r0["grad_gap"],
            "check_s_by_rank": [r["check_s"] for r in res],
+           "step_loss_gap": r0["step_loss_gap"],
+           "step_param_gap": r0["step_param_gap"],
+           "step_update_gap": r0["step_update_gap"],
+           "step_check_s_by_rank": [r["step_check_s"] for r in res],
            "check_collectives_rank0": r0["check_collectives"],
            "train_tokens": list(SLLM_TRAIN), "compute_dtype": "bfloat16",
            "step_s_by_rank": [[st["s"] for st in s_] for s_ in steps],
@@ -3883,6 +3897,10 @@ def phase_sharded_llm(dev, smi):
           f"sharded llama loss gap {r0['loss_gap']}")
     check(r0["grad_gap"] <= SLLM_GRAD_TOL,
           f"sharded llama gradient gap {r0['grad_gap']}")
+    check(r0["step_loss_gap"] <= SLLM_LOSS_TOL
+          and r0["step_param_gap"] <= SLLM_STEP_TOL,
+          f"sharded llama fp32 train step: loss gap {r0['step_loss_gap']}, "
+          f"params {r0['step_param_gap']} after it")
     check(all(np.isfinite(st["loss"]) for s_ in steps for st in s_),
           "sharded llama train losses finite")
     check(r0["ep_out_gap"] <= EP_TOL and r0["ep_aux_gap"] <= EP_TOL,
@@ -3904,10 +3922,6 @@ def main() -> int:
           "TF32 matmuls must be off")
     dev = torch.device("cuda:0")
     smi = phase_device()
-    if sys.argv[1:2] == ["--phase"]:
-        # one phase alone (a development run; prints no contract line)
-        globals()["phase_" + sys.argv[2]](dev, smi)
-        return 0
     peak = peaks_for(smi)
     rows = phase_kernel_check(peak)
     model, data, fit_row = phase_fit(dev)

@@ -216,6 +216,7 @@ def moe_ep_layer(spec: Dict) -> Dict[str, Any]:
     import time
 
     from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch import staged
     from repro_torch.models import moe_ep
 
     dev = _device(spec)
@@ -251,7 +252,7 @@ def moe_ep_layer(spec: Dict) -> Dict[str, Any]:
                 once()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            moe_ep.STATS.reset()
+            staged.STATS.reset()
             t0 = time.perf_counter()
             o, aux, gs = once()
             if dev.type == "cuda":
@@ -264,7 +265,7 @@ def moe_ep_layer(spec: Dict) -> Dict[str, Any]:
             out[(tuple(shape), case["name"])] = {
                 "coords": (dd, m), "out": o.detach().cpu().numpy(),
                 "aux": float(aux.detach()), "grads": grads,
-                "stats": moe_ep.STATS.as_dict(), "seconds": seconds}
+                "stats": staged.STATS.as_dict(), "seconds": seconds}
     return out
 
 

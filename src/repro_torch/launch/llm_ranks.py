@@ -20,6 +20,10 @@ A case is a dict with a ``kind``:
   * ``moe_ep``: granite's expert-parallel MoE layer with its FSDP gather,
     forward and gradient of sum(out · cot) + ``aux_coef`` · aux, with the
     collectives it issued by kind;
+  * ``fed_local``: the FedDCL local step (the ``feddcl`` plan: each rank
+    on its own silos, each silo on the sub-mesh of the other axes) on a
+    silo stack ``params`` and a (d, b, S) ``batch``; -> the params after
+    the step and its (d,) metrics;
   * ``sync``: the federated round boundary (``aggregator``) on a silo
     stack ``params``.
 """
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -209,13 +213,32 @@ def _moe_ep(case: Dict, mesh, dev) -> Dict[str, Any]:
             "seconds": seconds, "collectives": kinds}
 
 
+def _fed_local(case: Dict, mesh, dev) -> Dict[str, Any]:
+    cfg = _cfg(case)
+    stack = _tensors(case["params"], dev)
+    batch = _tensors(case["batch"], dev)
+    d, b, S = batch["tokens"].shape
+    shape = InputShape("t", seq_len=S, global_batch=d * b, kind="train")
+    tc = train_config(cfg, shape, federated=FederatedConfig(num_silos=d),
+                      **case["tc"])
+    plan = make_plan(cfg, shape, mesh, mode="feddcl", tc=tc, device=dev)
+    opt = steps_lib.make_optimizer(tc)
+    sp, so, sb = plan.place((stack, steps_lib.silo_opt_init(opt, stack),
+                             batch))
+    with use_mesh(mesh):
+        sp, so, m = plan.step_fn(sp, so, sb)
+    return {"params": whole(sp), "metrics": whole(m),
+            "step": whole(so["step"])}
+
+
 def _sync(case: Dict, mesh, dev) -> Dict[str, Any]:
     cfg = _cfg(case)
     stack = _tensors(case["params"], dev)
     d = tree_leaves(stack)[0].shape[0]
     tc = TrainConfig(model=cfg, shape=InputShape("t", 8, d, "train"),
-                     federated=FederatedConfig(num_silos=d,
-                                               aggregator=case["aggregator"]))
+                     federated=FederatedConfig(
+                         num_silos=d, aggregator=case["aggregator"],
+                         krum_f=case.get("krum_f", 1)))
     specs = param_specs(stack, mesh, fsdp=tc.fsdp, silo_dim=True,
                         silo_axis="data")
     opt = steps_lib.make_optimizer(tc)
@@ -232,7 +255,7 @@ def _sync(case: Dict, mesh, dev) -> Dict[str, Any]:
 
 
 _KINDS = {"train": _train, "grads": _grads, "serve": _serve,
-          "moe_ep": _moe_ep, "sync": _sync}
+          "moe_ep": _moe_ep, "fed_local": _fed_local, "sync": _sync}
 
 
 def sharded_cases(spec: Dict) -> List[Dict[str, Any]]:
@@ -259,11 +282,15 @@ PROBED = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
           "all_to_all_single")
 
 
-def gloo_probe(name: str) -> str:
-    """Whether a plain gloo group takes this rank's CUDA tensors for the
-    functional collective `name` (one of `PROBED`): "ok" with the result
-    right, else the error's first line. A crash of gloo itself ends the
-    rank: the caller runs one collective a group."""
+def gloo_probe(names: Tuple[str, ...]) -> Dict[str, str]:
+    """Whether a plain gloo group takes this rank's CUDA tensors for each
+    functional collective of `names` (of `PROBED`), one after the other:
+    "ok" with the result right, else the error's first line. A crash of
+    gloo itself ends the rank and so the group's remaining probes."""
+    return {name: _probe_one(name) for name in names}
+
+
+def _probe_one(name: str) -> str:
     import torch.distributed as dist
     from torch.distributed import _functional_collectives as funcol
 
@@ -308,7 +335,9 @@ def card_llama(spec: Dict) -> Dict[str, Any]:
     the running ranks, every rank on its card (``chip_smoke.py``'s phase
     ``sharded_llm``): one fp32 loss and gradient at ``check`` tokens held
     to the unsharded computation on rank 0's card (gaps over every leaf,
-    gathered leaf by leaf), then ``steps`` train steps at ``train`` tokens
+    gathered leaf by leaf), then one fp32 train step of the plan there
+    (``check_tc``: its TrainConfig overrides) held to ``make_train_step``,
+    then ``steps`` train steps at ``train`` tokens
     in ``compute_dtype``, timed, with the staged collectives' counts; then
     granite's expert-parallel MoE layer (``ep``) with its FSDP gather,
     held to the per-block emulation on rank 0."""
@@ -335,11 +364,13 @@ def card_llama(spec: Dict) -> Dict[str, Any]:
         loss0, ref_grads = loss_and_grads(params, batch, cfg)
         out["loss_unsharded"] = float(loss0)
     shape = InputShape("t", seq_len=S, global_batch=B, kind="train")
-    tc = train_config(cfg, shape, compute_dtype="float32")
+    tc = train_config(cfg, shape, compute_dtype="float32",
+                      **spec.get("check_tc", {}))
     plan = make_plan(cfg, shape, mesh, tc=tc, device=dev)
     sp = distribute_tree(params, plan.in_specs[0], mesh)
     sb = distribute_tree(batch, plan.in_specs[2], mesh)
-    del params
+    if rank != 0:
+        del params
     staged.STATS.reset()
     _sync(dev)
     t0 = time.perf_counter()
@@ -364,6 +395,12 @@ def card_llama(spec: Dict) -> Dict[str, Any]:
             1.0, abs(out["loss_unsharded"]))
         out["grad_gap"] = max(gaps)
     out["loss_sharded"] = loss
+
+    # one fp32 train step of the plan against the unsharded step
+    out.update(_check_step(cfg, tc, plan, mesh, sp, sb,
+                           params if rank == 0 else None, batch, dev))
+    if rank == 0:
+        del params
 
     # the timed steps, in the spec's compute dtype
     B, S = spec["train"]
@@ -427,6 +464,60 @@ def card_llama(spec: Dict) -> Dict[str, Any]:
             1.0, float(want.abs().max()))
         out["ep_aux_gap"] = abs(aux - want_aux)
     return out
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 (the tests' relative Frobenius)."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def _check_step(cfg, tc, plan, mesh, sp, sb, params, batch, dev
+                ) -> Dict[str, Any]:
+    """The plan's train step once on the DTensor params `sp` (updated in
+    place) against ``make_train_step`` on a copy of rank 0's whole
+    `params`: the loss gap and the params' gap after the step (relative
+    Frobenius, the largest leaf), and the gap of the update itself."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    opt = steps_lib.make_optimizer(tc)
+    so = _opt_init_sharded(opt, sp, plan.in_specs[1], mesh)
+    res: Dict[str, Any] = {}
+    before = None
+    if rank == 0:
+        # copies: a replicated block of `sp` may share `params`' storage,
+        # and both steps update in place
+        before = [t.detach().clone() for t in tree_leaves(params)]
+        params = tree_map(lambda t: t.detach().clone(), params)
+        step, ropt = steps_lib.make_train_step(cfg, tc, use_kernels=False,
+                                               device=dev)
+        _, ost, m0 = step(params, ropt.init(params), batch)
+        res["step_loss_unsharded"] = float(m0["loss"])
+        del ost
+    _sync(dev)
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        sp, so, m = plan.step_fn(sp, so, sb)
+        loss = float(m["loss"])
+    _sync(dev)
+    res["step_check_s"] = time.perf_counter() - t0
+    del so
+    gaps, upd = [], []
+    for i, t in enumerate(tree_leaves(sp)):
+        full = t.full_tensor()
+        if rank == 0:
+            ref = tree_leaves(params)[i]
+            gaps.append(_rel_gap(full, ref))
+            upd.append(_rel_gap(full - before[i], ref - before[i]))
+        del full
+    if rank == 0:
+        res["step_loss_gap"] = abs(loss - res["step_loss_unsharded"]) / max(
+            1.0, abs(res["step_loss_unsharded"]))
+        res["step_param_gap"] = max(gaps)
+        res["step_update_gap"] = max(upd)
+    return res
 
 
 def _opt_init_sharded(opt, sp: Any, spec_tree: Any, mesh) -> Any:

@@ -13,16 +13,20 @@ gloo and `register` gives the ``_c10d_functional`` ops DTensor issues
 (``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
 ``all_to_all_single``, ``broadcast``) kernels for the CUDA dispatch key
 that stage through host memory into the same group's gloo collectives on
-CPU tensors, the way the sharded engine's ``SiloComm`` and ``moe_ep``'s
-exchange stage theirs. On CPU-only ranks the same kernels take the CPU
-key (a plain host copy), so the CPU tests run this code. The collectives
+CPU tensors. ``moe_ep``'s exchange on plain tensors calls the same
+kernels directly. On CPU-only ranks the kernels take the CPU key (CPU
+tensors go to gloo as they are, nothing staged), so the CPU tests run
+this code. The sharded engine's ``SiloComm`` keeps its own staging: its
+pinned buffers belong to a plan, are reused every round and are zeroed
+with the plan's other buffers (``release``). The collectives
 complete before the op returns (``wait_tensor`` finds nothing to wait
 for). A failure in gloo raises; nothing falls back to another program.
 
 ``STATS`` counts, since its last ``reset``: the calls of each kind, the
-bytes staged device <-> host, the bytes handed to gloo (this rank's send
-buffers; also by kind) and the seconds in the collectives (host clock,
-copies included).
+bytes staged device <-> pinned host, the bytes handed to gloo (this
+rank's send buffers; also by kind) and the seconds in the collectives
+(host clock from the moment the device has produced the input, copies
+included).
 """
 from __future__ import annotations
 
@@ -69,9 +73,22 @@ def _group(name: str):
     return _resolve_process_group(name)
 
 
-def _host(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous host copy of `t` (pinned for a CUDA tensor)."""
-    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+def _start(t: torch.Tensor) -> float:
+    """The clock at a collective's start, once the device has produced
+    `t`: the compute before it is not the collective's time."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    return time.perf_counter()
+
+
+def _host(t: torch.Tensor, *, written: bool = False) -> torch.Tensor:
+    """`t` on the host for gloo: a CUDA tensor copied into pinned memory
+    (counted); a CPU tensor as it is, contiguous, or a copy where the
+    collective writes into its buffer (`written`)."""
+    if not t.is_cuda:
+        return t.clone(memory_format=torch.contiguous_format) if written \
+            else t.contiguous()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     h.copy_(t)
     STATS.staged_bytes += _nbytes(h)
     return h
@@ -82,6 +99,10 @@ def _empty_host(shape, like: torch.Tensor) -> torch.Tensor:
 
 
 def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The host result `h` where `like` lies (copied back to the card,
+    counted)."""
+    if not like.is_cuda:
+        return h
     STATS.staged_bytes += _nbytes(h)
     return h.to(like.device, copy=True)
 
@@ -102,16 +123,16 @@ def _reduce(h: torch.Tensor, reduce_op: str, pg) -> None:
         h /= dist.get_world_size(pg)
 
 
-def _all_reduce(input: torch.Tensor, reduce_op: str, group_name: str):
-    t0 = time.perf_counter()
-    h = _host(input)
+def all_reduce(input: torch.Tensor, reduce_op: str, group_name: str):
+    t0 = _start(input)
+    h = _host(input, written=True)
     _reduce(h, reduce_op, _group(group_name))
     _count("all_reduce", _nbytes(h), t0)
     return _back(h, input)
 
 
-def _all_gather(input: torch.Tensor, group_size: int, group_name: str):
-    t0 = time.perf_counter()
+def all_gather(input: torch.Tensor, group_size: int, group_name: str):
+    t0 = _start(input)
     h = _host(input)
     out = _empty_host((group_size * h.shape[0],) + tuple(h.shape[1:]), h)
     dist.all_gather_into_tensor(out, h, group=_group(group_name))
@@ -119,9 +140,9 @@ def _all_gather(input: torch.Tensor, group_size: int, group_name: str):
     return _back(out, input)
 
 
-def _reduce_scatter(input: torch.Tensor, reduce_op: str, group_size: int,
+def reduce_scatter(input: torch.Tensor, reduce_op: str, group_size: int,
                     group_name: str):
-    t0 = time.perf_counter()
+    t0 = _start(input)
     pg = _group(group_name)
     h = _host(input)
     out = _empty_host((h.shape[0] // group_size,) + tuple(h.shape[1:]), h)
@@ -133,9 +154,9 @@ def _reduce_scatter(input: torch.Tensor, reduce_op: str, group_size: int,
     return _back(out, input)
 
 
-def _all_to_all(input: torch.Tensor, output_split_sizes: List[int],
+def all_to_all(input: torch.Tensor, output_split_sizes: List[int],
                 input_split_sizes: List[int], group_name: str):
-    t0 = time.perf_counter()
+    t0 = _start(input)
     h = _host(input)
     rows = sum(output_split_sizes) if output_split_sizes else h.shape[0]
     out = _empty_host((rows,) + tuple(h.shape[1:]), h)
@@ -146,19 +167,19 @@ def _all_to_all(input: torch.Tensor, output_split_sizes: List[int],
     return _back(out, input)
 
 
-def _broadcast(input: torch.Tensor, src: int, group_name: str):
-    t0 = time.perf_counter()
-    h = _host(input)
+def broadcast(input: torch.Tensor, src: int, group_name: str):
+    t0 = _start(input)
+    h = _host(input, written=True)
     dist.broadcast(h, src=src, group=_group(group_name))
     _count("broadcast", _nbytes(h), t0)
     return _back(h, input)
 
 
-_KERNELS = {"all_reduce": _all_reduce,
-            "all_gather_into_tensor": _all_gather,
-            "reduce_scatter_tensor": _reduce_scatter,
-            "all_to_all_single": _all_to_all,
-            "broadcast": _broadcast}
+_KERNELS = {"all_reduce": all_reduce,
+            "all_gather_into_tensor": all_gather,
+            "reduce_scatter_tensor": reduce_scatter,
+            "all_to_all_single": all_to_all,
+            "broadcast": broadcast}
 
 
 def register(device_type: str = "cuda") -> None:

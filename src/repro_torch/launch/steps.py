@@ -450,7 +450,8 @@ def make_fedavg_sync_step(tc: TrainConfig, *,
     the unweighted mean for fedavg / fedprox / fedsgd, else the median,
     trimmed mean or Krum's pick over all silos), leaf by leaf and piece by
     piece, so no second copy of the stack is held. Krum sums its (d, d)
-    distances over the pieces, then copies the chosen silo. For fedavg and
+    distances over the pieces (on a sharded stack also over the mesh axes
+    a leaf is split on), then copies the chosen silo. For fedavg and
     the robust aggregators the whole optimizer state, step counter
     included, is then zeroed, as the reference's sync does (so the
     learning-rate warm-up restarts every round); fedprox and fedsgd keep
@@ -478,11 +479,16 @@ def make_fedavg_sync_step(tc: TrainConfig, *,
         gather = _silo_gather(leaves[0]) if _sharded(silo_params) else None
         # the sharded sync reads each piece gathered over the silo axis and
         # writes the result into this rank's own silos
-        pieces = [(c, gather(c) if gather else c)
-                  for a in leaves for c in _silo_columns(_local(a))]
+        by_leaf = [[(c, gather(c) if gather else c)
+                    for c in _silo_columns(_local(a))] for a in leaves]
+        pieces = [cf for lp in by_leaf for cf in lp]
         if fed.aggregator == "krum":
-            best = krum_pick(sum(krum_distances(f) for _, f in pieces), mask,
-                             fed.krum_f)
+            if gather:
+                dist = _krum_total(leaves, [
+                    sum(krum_distances(f) for _, f in lp) for lp in by_leaf])
+            else:
+                dist = sum(krum_distances(f) for _, f in pieces)
+            best = krum_pick(dist, mask, fed.krum_f)
             for c, f in pieces:
                 c.copy_(f.index_select(0, best.reshape(1)))
         else:
@@ -494,6 +500,32 @@ def make_fedavg_sync_step(tc: TrainConfig, *,
         return silo_params, silo_opt_state
 
     return sync
+
+
+def _krum_total(leaves, parts) -> torch.Tensor:
+    """The (d, d) Krum distances of a silo stack of DTensors from each
+    leaf's distances over this rank's block (`parts`): a leaf split over
+    mesh axes besides the silo axis has its partial distances summed over
+    those axes, a leaf whole on an axis counts once, so every rank of a
+    silo row holds the distances over all coordinates and picks the same
+    silo."""
+    from torch.distributed import _functional_collectives as funcol
+
+    groups: Dict[Tuple[int, ...], torch.Tensor] = {}
+    for a, part in zip(leaves, parts):
+        if any(p.is_partial() for p in a.placements):
+            raise ValueError(f"a partial silo stack: {a.placements}")
+        axes = tuple(j for j, p in enumerate(a.placements)
+                     if p.is_shard() and not p.is_shard(0))
+        groups[axes] = groups.get(axes, 0) + part
+    total = None
+    for axes in sorted(groups):
+        dist = groups[axes]
+        for j in axes:
+            dist = funcol.wait_tensor(funcol.all_reduce(
+                dist, "sum", (leaves[0].device_mesh, j)))
+        total = dist if total is None else total + dist
+    return total
 
 
 def _silo_gather(like: torch.Tensor) -> Callable:

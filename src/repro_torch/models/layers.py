@@ -859,10 +859,18 @@ def moe_pack(p: Params, x: torch.Tensor, cfg: ModelConfig):
     gates, idx, probs = _router_probs(p, x2d, mo)
     cap = max(int(mo.capacity_factor * T * k / E), 1)
     flat_e, slot, keep = moe_dispatch(idx, cap, E)
-    src = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)   # t-major
-    buf = x.new_zeros((E, cap + 1, d)).index_put_((flat_e, slot), src)
-    return buf[:, :cap], (flat_e, slot, keep), gates, \
-        moe_aux_loss(probs, idx, mo)
+    return moe_rows(x2d, k, flat_e, slot, E, cap), (flat_e, slot, keep), \
+        gates, moe_aux_loss(probs, idx, mo)
+
+
+def moe_rows(x2d: torch.Tensor, k: int, e: torch.Tensor, slot: torch.Tensor,
+             n: int, cap: int) -> torch.Tensor:
+    """The (n, cap, d) capacity buffers of n experts: the row of x2d of
+    each (token, slot) pair, t-major, written to (e, slot); the pairs at
+    slot `cap` land in the overflow slot, which is cut off."""
+    T, d = x2d.shape
+    src = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
+    return x2d.new_zeros((n, cap + 1, d)).index_put_((e, slot), src)[:, :cap]
 
 
 def moe_experts(p: Params, rows: torch.Tensor, lo: int = 0) -> torch.Tensor:
@@ -913,37 +921,75 @@ def apply_moe_gspmd(p: Params, x: torch.Tensor, cfg: ModelConfig):
     from this call's own tokens, so a decode step's output depends on its
     batch-mates, and tokens over capacity are dropped."""
     if is_dtensor(x):
-        return _replicated_moe(p, x, cfg)
+        return _sharded_moe(p, x, cfg)
     buf, dispatch, gates, aux = moe_pack(p, x, cfg)
     buf = constrain(buf, "model", None, None)                  # expert parallel
     out = moe_combine(moe_experts(p, buf), dispatch, gates, x.shape)
     return moe_shared(p, x, cfg, out), aux
 
 
-def _replicated_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """`apply_moe_gspmd` on DTensors: every rank routes and runs the whole
-    layer on every token (x and the weights gathered whole), the
-    replication the reference's GSPMD partitioner gives this dispatch
-    (its sort, searchsorted and scatter over all tokens have no split
-    rule; ``moe_ep`` is the expert-parallel layout). The gradients are
-    whole on every rank."""
-    from torch.distributed.tensor import Replicate
+def _sharded_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """`apply_moe_gspmd` on DTensors, laid out as the reference's
+    constraints lay out its buffers, with the partitioning GSPMD gives a
+    scatter into and a gather from a buffer split on its indexed dim.
+    The routing (its sort, searchsorted and scatter over all T tokens,
+    which have no split rule) runs on every rank, on x and the router
+    whole. The (E, cap, d) buffer is split on E over "model"
+    (``constrain(buf, "model", None, None)``): each model rank packs the
+    rows routed to its E/M experts, runs their SwiGLU on its slice of the
+    weights (gathered whole over the other axes, their gradients sliced
+    back) and takes its experts' part of the combine, so the output is a
+    partial sum over "model", reduced and laid out as x. Shared experts
+    take ``apply_mlp``'s tensor-parallel form."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.tree import tree_leaves, tree_map
-
+    mo = cfg.moe
     mesh = x.device_mesh
-    whole = tuple(Replicate() for _ in range(mesh.ndim))
-    leaves = tree_leaves(p)
+    names = mesh.mesh_dim_names or ()
+    E, k = mo.num_experts, mo.top_k
+    B, S, d = x.shape
+    T = B * S
+    cap = max(int(mo.capacity_factor * T * k / E), 1)
+    tp = [n == "model" and mesh.size(i) > 1 and E % mesh.size(i) == 0
+          for i, n in enumerate(names)]
+    ax = tp.index(True) if any(tp) else None
+    E_loc = E // mesh.size(ax) if ax is not None else E
+    lo = mesh.get_local_rank(ax) * E_loc if ax is not None else 0
+    whole = tuple(Replicate() for _ in tp)
+    ep = tuple(Shard(0) if t else Replicate() for t in tp)
+    part = tuple(Partial() if t else Replicate() for t in tp)
+    rkeys = [n for n in ("router", "router_bias") if n in p]
+    wkeys = ("w_gate", "w_up", "w_down")
 
-    def fn(xl, *ws):
-        it = iter(ws)
-        return apply_moe_gspmd(tree_map(lambda _: next(it), p), xl, cfg)
+    def route(xl, *rl):
+        gates, idx, probs = _router_probs(dict(zip(rkeys, rl)),
+                                          xl.reshape(T, d), mo)
+        flat_e, slot, keep = moe_dispatch(idx, cap, E)
+        return flat_e, slot, keep, gates, moe_aux_loss(probs, idx, mo)
 
-    return local_map(fn, out_placements=(whole, whole),
-                     in_placements=(whole,) * (1 + len(leaves)),
-                     device_mesh=mesh, redistribute_inputs=True)(
-        x, *leaves)
+    def experts(xl, flat_e, slot, keep, gates, *wl):
+        # this rank's experts lo .. lo + E_loc; other pairs to the dropped
+        # slot, weighted 0
+        mine = (flat_e >= lo) & (flat_e < lo + E_loc)
+        e = torch.where(mine, flat_e - lo, 0)
+        s = torch.where(mine, slot, cap)
+        y = moe_experts(dict(zip(wkeys, wl)),
+                        moe_rows(xl.reshape(T, d), k, e, s, E_loc, cap))
+        return (moe_combine(y, (e, s, keep & mine), gates, xl.shape),)
+
+    xw = lay_out(x, whole)
+    flat_e, slot, keep, gates, aux = local_map(
+        route, out_placements=(whole,) * 5,
+        in_placements=(whole,) * (1 + len(rkeys)), device_mesh=mesh)(
+        xw, *(lay_out(p[n], whole) for n in rkeys))
+    out = local_map(
+        experts, out_placements=(part,),
+        in_placements=(whole,) * 5 + (ep,) * 3,
+        in_grad_placements=(part, whole, whole, whole, part) + (ep,) * 3,
+        device_mesh=mesh)(xw, flat_e, slot, keep, gates,
+                          *(lay_out(p[n], ep) for n in wkeys))[0]
+    return moe_shared(p, x, cfg, lay_out(_summed(out), x.placements)), aux
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):

@@ -24,10 +24,11 @@ whole over its model peers, and:
 Anywhere else (no mesh in context, M = 1, E % M or S % M) it is the gspmd
 path, as the reference falls back.
 
-Transport: gloo over the mesh's sub-groups, buffers as bytes. A CUDA
-tensor goes through pinned host buffers and back (NCCL refuses two ranks
-on one card), its bytes counted in ``STATS`` as ``SiloComm`` counts its
-staging. A planning mesh (fake backend) is refused.
+Transport: gloo over the mesh's sub-groups through ``launch.staged``'s
+kernels, called directly: a CUDA tensor goes through pinned host
+buffers and back (NCCL refuses two ranks on one card), a CPU tensor to
+gloo as it is; calls, bytes and seconds are counted in ``staged.STATS``.
+A planning mesh (fake backend) is refused.
 
 Autograd: each collective is a ``torch.autograd.Function``; the
 exchange's backward is the same exchange of the gradient, the gather's
@@ -56,84 +57,20 @@ per-rank trace); real data is refused.
 """
 from __future__ import annotations
 
-import time
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import staged
 from repro_torch.models.layers import (apply_moe_gspmd, moe_combine,
                                        moe_experts, moe_pack, moe_shared)
-
-
-class ExchangeStats:
-    """What the exchange moved since `reset`: calls of each collective,
-    bytes staged device <-> pinned host, bytes handed to gloo (this rank's
-    send buffers) and the seconds spent in the collectives."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.calls = {"all-to-all": 0, "all-gather": 0, "all-reduce": 0}
-        self.staged_bytes = 0
-        self.wire_bytes = 0
-        self.seconds = 0.0
-
-    def as_dict(self) -> dict:
-        return {"calls": dict(self.calls), "staged_bytes": self.staged_bytes,
-                "wire_bytes": self.wire_bytes, "seconds": self.seconds}
-
-
-STATS = ExchangeStats()
-
-
-def _host(t: torch.Tensor) -> torch.Tensor:
-    """`t` as a contiguous CPU tensor for gloo (a CUDA tensor copied into
-    pinned memory, counted; torch's host allocator reuses the blocks)."""
-    if not t.is_cuda:
-        return t.contiguous()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
-    STATS.staged_bytes += host.numel() * host.element_size()
-    return host
-
-
-def _recv(shape, like: torch.Tensor) -> torch.Tensor:
-    """A receive buffer for gloo: pinned for a CUDA `like`."""
-    return torch.empty(shape, dtype=like.dtype, pin_memory=like.is_cuda)
-
-
-def _back(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    if not like.is_cuda:
-        return host
-    STATS.staged_bytes += host.numel() * host.element_size()
-    return host.to(like.device, copy=True)
-
-
-def _bytes(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1).view(torch.uint8)
-
-
-def _begin(t: torch.Tensor) -> float:
-    if t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
-    return time.perf_counter()
 
 
 def _exchange(t: torch.Tensor, group) -> torch.Tensor:
     """(M, ...) -> (M, ...): block j goes to the group's rank j, and block
     j of the result came from rank j."""
-    t0 = _begin(t)
-    send = _host(t)
-    recv = _recv(send.shape, t)
-    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
-    STATS.calls["all-to-all"] += 1
-    STATS.wire_bytes += send.numel() * send.element_size()
-    out = _back(recv, t)
-    STATS.seconds += time.perf_counter() - t0
-    return out
+    return staged.all_to_all(t.contiguous(), [], [], group.group_name)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -154,16 +91,8 @@ class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group, m, M):
         ctx.m, ctx.s = m, t.shape[1]
-        t0 = _begin(t)
-        send = _host(t)
-        parts = _recv((M,) + tuple(send.shape), t)
-        dist.all_gather([_bytes(p) for p in parts.unbind(0)], _bytes(send),
-                        group=group)
-        STATS.calls["all-gather"] += 1
-        STATS.wire_bytes += send.numel() * send.element_size()
-        out = _back(torch.cat(parts.unbind(0), dim=1), t)
-        STATS.seconds += time.perf_counter() - t0
-        return out
+        parts = staged.all_gather(t.contiguous(), M, group.group_name)
+        return torch.cat(parts.view((M,) + tuple(t.shape)).unbind(0), dim=1)
 
     @staticmethod
     def backward(ctx, g):
@@ -176,15 +105,9 @@ class _SumOver(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, groups):
-        t0 = _begin(t)
-        host = _host(t).clone()
         for g in groups:
-            dist.all_reduce(host, group=g)
-            STATS.calls["all-reduce"] += 1
-            STATS.wire_bytes += host.numel() * host.element_size()
-        out = _back(host, t)
-        STATS.seconds += time.perf_counter() - t0
-        return out
+            t = staged.all_reduce(t, "sum", g.group_name)
+        return t
 
     @staticmethod
     def backward(ctx, g):

@@ -159,7 +159,7 @@ def _assemble(ranks, shape, name, x_shape):
         gx[blk] += got["grads"].pop("x")
         for k, v in got["grads"].items():
             grads[k] = v if k not in grads else _add(grads[k], v)
-        assert got["stats"]["calls"]["all-to-all"] == 4    # 2 fwd + 2 bwd
+        assert got["stats"]["calls"]["all_to_all"] == 4    # 2 fwd + 2 bwd
         assert got["stats"]["staged_bytes"] == 0          # CPU tensors
     assert seen == D * M and len(auxes) == 1
     return out, auxes.pop(), {**grads, "x": gx}

@@ -59,24 +59,29 @@ def test_production_mesh_record_is_traced_per_rank(records, mesh):
 def test_card_phase_target_on_cpu_over_staged_collectives():
     """``chip_smoke.py``'s phase ``sharded_llm`` target at the REDUCED
     configs on 4 CPU ranks, its collectives through ``launch.staged``'s
-    kernels (the CPU key: host copies into gloo, the code the card runs
-    on pinned copies): the fp32 check and the EP layer within the
-    phase's bars, the bf16 steps finite, every collective kind counted."""
+    kernels (the CPU key: the tensors into gloo as they are, where the
+    card stages pinned copies): the fp32 check (loss, gradients and one train
+    step of the plan against ``make_train_step``) and the EP layer within
+    the phase's bars, the bf16 steps finite, every collective kind
+    counted."""
     from repro_torch.launch import llm_ranks
     from repro_torch.launch.mesh import run_ranks
 
     spec = {"mesh": (2, 2), "check": (2, 64), "train": (4, 64),
             "steps": 2, "compute_dtype": "bfloat16", "ep": (4, 64),
-            "ep_repeats": 1, "reduced": True}
+            "ep_repeats": 1, "reduced": True,
+            "check_tc": {"learning_rate": 1e-3, "warmup_steps": 1}}
     got = run_ranks(llm_ranks.card_llama, 4, args=(spec,), device="cpu",
                     backend="staged", timeout=300)
     r0 = got[0]
     assert r0["loss_gap"] <= 1e-5 and r0["grad_gap"] <= 1e-4
+    assert r0["step_loss_gap"] <= 1e-5 and r0["step_param_gap"] <= 1e-4
     assert r0["ep_out_gap"] <= 1e-5 and r0["ep_aux_gap"] <= 1e-5
     for r in got:
         assert all(math.isfinite(s["loss"]) for s in r["steps"])
         calls = r["check_collectives"]["calls"]
         assert {"all_gather", "all_reduce", "reduce_scatter"} <= set(calls)
-        assert r["check_collectives"]["staged_bytes"] >= \
-            2 * r["check_collectives"]["wire_bytes"] > 0
+        # CPU tensors go to gloo as they are: nothing staged
+        assert r["check_collectives"]["staged_bytes"] == 0 < \
+            r["check_collectives"]["wire_bytes"]
         assert r["ep_collectives"]["calls"]["all_to_all"] == 2

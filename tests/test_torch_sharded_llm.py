@@ -17,8 +17,11 @@ routed slice's load-balance loss, averaged over the ranks), which no
 unsharded gspmd call computes, so aux and the gradients of sum(out · cot)
 + c · aux are held to the port's per-block emulation of the exchange
 (``moe_ep.emulate_ep`` on each data block), within 1e-5 over max(1, |x|)
-as ``tests/test_torch_moe_ep.py``. The syncs: fedavg bit for bit to the
-port's unsharded ``make_fedavg_sync_step``, the median within 1e-6.
+as ``tests/test_torch_moe_ep.py``. granite's gspmd dispatch on DTensors:
+loss and gradients 1e-5. The ``feddcl`` local step against the port's
+unsharded ``make_federated_local_step``: metrics 1e-5, params after the
+step 1e-4. The syncs: fedavg and Krum bit for bit to the port's unsharded
+``make_fedavg_sync_step``, the median within 1e-6.
 ``-s`` prints the ``parity-gap`` lines.
 """
 import dataclasses
@@ -62,6 +65,7 @@ TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10,
           compute_dtype="float32", remat=True)
 EP_B, EP_S, EP_AUX = 4, 16, 0.1
 D_SILOS = 2
+KRUM_SILOS, KRUM_F = 4, 1
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,15 +113,53 @@ def _batches(n, b=B, s=S):
     return [stream.batch(i) for i in range(n)]
 
 
-def _silo_stack(seed=3):
-    """A (D_SILOS, ...) stack of reduced llama params, each silo drawn
-    apart (the sync has something to aggregate)."""
+def _silo_stack(seed=3, d=D_SILOS):
+    """A (d, ...) stack of reduced llama params, each silo drawn apart
+    (the sync has something to aggregate)."""
     gen = torch.Generator().manual_seed(seed)
     return _np(tree_map(lambda a: torch.stack(
         [a + 0.01 * i * torch.randn(a.shape, generator=gen)
-         for i in range(D_SILOS)]),
+         for i in range(d)]),
         tbb.init_params(tconfigs.REDUCED[LLAMA], gen, torch.float32,
                         device="cpu")))
+
+
+def _krum_stack():
+    """KRUM_SILOS silos of reduced llama params, equal but in the
+    embedding, which ``param_specs`` splits over "model": silos 0 and 1
+    sit near each other, apart only in the first model rank's block;
+    silos 2 and 3, twice as far apart, only in the second's; the two
+    pairs far apart everywhere. Summed over the model ranks the
+    distances pick silo 0; each model rank's own block alone shows a
+    duplicate pair, and the two ranks would pick different silos."""
+    from types import SimpleNamespace
+
+    from repro_torch.shardingx.policy import param_specs
+
+    base = _silo_stack(d=1)
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           devices=np.empty(MESH))
+    spec = tuple(param_specs({"embed": torch.empty(
+        (KRUM_SILOS,) + base["embed"].shape[1:], device="meta")}, mesh,
+        silo_dim=True, silo_axis="data")["embed"])
+    dim = spec.index("model") - 1
+    e = base["embed"][0]
+    rng = np.random.default_rng(5)
+    g, h = rng.standard_normal((2,) + e.shape).astype(np.float32)
+    lo = np.zeros(e.shape, np.float32)
+    np.moveaxis(lo, dim, 0)[:e.shape[dim] // 2] = 1.0
+    hi = 1.0 - lo
+    stack = tree_map(lambda a: np.repeat(a, KRUM_SILOS, axis=0), base)
+    stack["embed"] = np.stack([e + h + 0.1 * g * lo, e + h - 0.1 * g * lo,
+                               e - h + 0.2 * g * hi, e - h - 0.2 * g * hi])
+    return stack
+
+
+def _silo_batch():
+    """A (D_SILOS, B / D_SILOS, S) batch: each silo its own rows."""
+    b = _batches(1)[0]
+    return {k: np.stack(np.split(np.asarray(v), D_SILOS)) for k, v in
+            b.items()}
 
 
 def _ep_case():
@@ -147,10 +189,16 @@ def ranks():
         "ep_train": dict(kind="train", arch=GRANITE, moe_impl="ep",
                          no_drop=True, params=_ref_params(GRANITE),
                          batches=_batches(1), tc=TC),
+        "granite": dict(kind="grads", arch=GRANITE, remat=False,
+                        params=_ref_params(GRANITE), batch=_batches(1)[0]),
+        "fed_local": dict(kind="fed_local", arch=LLAMA, params=stack,
+                          batch=_silo_batch(), tc=TC),
         "fedavg": dict(kind="sync", arch=LLAMA, aggregator="fedavg",
                        params=stack),
         "median": dict(kind="sync", arch=LLAMA, aggregator="median",
                        params=stack),
+        "krum": dict(kind="sync", arch=LLAMA, aggregator="krum",
+                     krum_f=KRUM_F, params=_krum_stack()),
     }
     names = list(cases)
     got = run_ranks(llm_ranks.sharded_cases, 4,
@@ -322,22 +370,83 @@ def test_granite_train_step_under_ep(ranks):
     assert got["step"] == 1
 
 
-@pytest.mark.parametrize("aggregator", ["fedavg", "median"])
+def test_granite_gspmd_gradients_match_reference(ranks):
+    """granite's gspmd dispatch on DTensors: the routing and combine on
+    every rank, the experts on the buffer split over "model"."""
+    cases, res = ranks
+    case, got = cases["granite"], res["granite"]
+    jc, tc = jconfigs.REDUCED[GRANITE], tconfigs.REDUCED[GRANITE]
+    b = jax.tree.map(jnp.asarray, case["batch"])
+
+    def jloss(p):
+        return jbb.loss_fn(p, b, jc, use_pallas=False, remat=False,
+                           compute_dtype=jnp.float32)[0]
+
+    lj, gj = jax.value_and_grad(jloss)(jax.tree.map(jnp.asarray,
+                                                    case["params"]))
+    lt, gt = llm_ranks.loss_and_grads(
+        lm_params_from_numpy(case["params"], device="cpu"),
+        {k: torch.as_tensor(v) for k, v in case["batch"].items()}, tc,
+        remat=False)
+    _gap("granite gspmd sharded loss vs reference",
+         _rel(got["loss"], float(lj)), 1e-5)
+    _gap("granite gspmd sharded loss vs port", _rel(got["loss"], float(lt)),
+         1e-5)
+    _gap("granite gspmd sharded gradients vs reference",
+         _tree_gap(got["grads"], _jnp(gj)), 1e-5)
+    _gap("granite gspmd sharded gradients vs port",
+         _tree_gap(got["grads"], _np(gt)), 1e-5)
+
+
+def test_federated_local_step_matches_unsharded(ranks):
+    """The ``feddcl`` plan's local step on the (2, 2) mesh (each data row
+    one silo, its step on the model sub-mesh) against the port's
+    unsharded ``make_federated_local_step`` on the same stack."""
+    cases, res = ranks
+    case, got = cases["fed_local"], res["fed_local"]
+    _, tc, _, _ = _train_configs(LLAMA)
+    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    d, b, s = batch["tokens"].shape
+    tt = TrainConfig(model=tc, shape=InputShape("t", s, d * b, "train"),
+                     federated=FederatedConfig(num_silos=d), **TC)
+    step, opt = tsteps.make_federated_local_step(tc, tt, use_kernels=False,
+                                                 device="cpu")
+    sp = tree_map(lambda a: torch.as_tensor(a).clone(), case["params"])
+    so = tsteps.silo_opt_init(opt, sp)
+    sp, so, m = step(sp, so, batch)
+    for k in m:
+        _gap(f"federated local step {k} vs port",
+             _rel(got["metrics"][k], m[k].numpy()), 1e-5)
+    assert np.array_equal(got["step"], so["step"].numpy())
+    _gap("federated local step params vs port",
+         _tree_gap(got["params"], _np(sp)), 1e-4)
+
+
+@pytest.mark.parametrize("aggregator", ["fedavg", "median", "krum"])
 def test_sync_matches_unsharded(ranks, aggregator):
+    """The sharded sync against the unsharded one. Krum's stack
+    (``_krum_stack``) has 4 silos, 2 a rank; a leaf split over "model"
+    holds only a block on each rank, so its distances must be summed
+    over the model ranks for every rank to pick the unsharded sync's
+    silo."""
     cases, res = ranks
     case, got = cases[aggregator], res[aggregator]
+    d = tree_leaves(case["params"])[0].shape[0]
     tc = tconfigs.REDUCED[LLAMA]
-    tt = TrainConfig(model=tc, shape=InputShape("t", S, D_SILOS, "train"),
-                     federated=FederatedConfig(num_silos=D_SILOS,
-                                               aggregator=aggregator))
+    tt = TrainConfig(model=tc, shape=InputShape("t", S, d, "train"),
+                     federated=FederatedConfig(num_silos=d,
+                                               aggregator=aggregator,
+                                               krum_f=KRUM_F))
     sp = tree_map(lambda a: torch.as_tensor(a).clone(), case["params"])
     so = tsteps.silo_opt_init(tsteps.make_optimizer(tt), sp)
     sp, so = tsteps.make_fedavg_sync_step(tt, device="cpu")(sp, so)
+    if aggregator == "krum":
+        assert np.array_equal(_np(sp)["embed"][0], case["params"]["embed"][0])
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(_np(sp))):
-        if aggregator == "fedavg":
-            assert np.array_equal(a, b)
-        else:
+        if aggregator == "median":
             assert np.abs(a - b).max() <= 1e-6
+        else:
+            assert np.array_equal(a, b)
     assert got["opt_zero"]
 
 
